@@ -1,0 +1,82 @@
+"""SAM output (printer_body, software/printer.cpp:7-98): a jax-free copy of
+``darwin_tpu/pipeline/printer.py``'s ``sam_header`` and ``sam_lines``
+(darwin_tpu's printer imports its extender, which imports jax).  MHAP
+output (overlap mode) is not ported yet."""
+
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+
+from darwin_tpu.genome import GenomeStore
+from darwin_tpu_torch.pipeline.extend import ExtendAlignment
+
+
+def sam_header(store: GenomeStore) -> str:
+    lines = ["@HD\tVN:1.6\tSO:coordinate"]
+    for c in store.chromosomes:
+        lines.append(f"@SQ\tSN:{c.name}\tLN:{c.length_unpadded}")
+    return "\n".join(lines) + "\n"
+
+
+def _cigar(e: ExtendAlignment) -> str:
+    """CIGAR from the aligned strings (printer.cpp:219-292), run-length
+    encoded with numpy."""
+    out = []
+    if e.query_start_offset > 0:
+        out.append(f"{e.query_start_offset}S")
+    ref = np.frombuffer(bytes(e.aligned_reference), np.uint8)
+    q = np.frombuffer(bytes(e.aligned_query), np.uint8)
+    if len(ref) != len(q):
+        raise ValueError("aligned strings differ in length")
+    if len(ref):
+        dash = np.uint8(ord("-"))
+        ops = np.where(ref == dash, np.uint8(ord("I")),
+                       np.where(q == dash, np.uint8(ord("D")),
+                                np.uint8(ord("M"))))
+        bounds = np.concatenate(
+            ([0], np.nonzero(np.diff(ops))[0] + 1, [len(ops)]))
+        lens = np.diff(bounds)
+        chars = ops[bounds[:-1]]
+        out.extend(f"{int(n)}{chr(c)}" for n, c in zip(lens, chars))
+    tail = e.query_length - e.query_end_offset - 1
+    if tail > 0:
+        out.append(f"{tail}S")
+    return "".join(out) if out else "*"
+
+
+def sam_lines(alignments: List[ExtendAlignment], reads,
+              store: GenomeStore) -> List[str]:
+    """software/printer.cpp:7-98, minus the header (emitted once)."""
+    als = sorted(alignments, key=lambda e: (e.read_num, -e.score))
+    # suppress secondaries overlapping > 50% of a better one (:23-48)
+    for i, e1 in enumerate(als):
+        if not e1.do_print:
+            continue
+        s1, e_1 = e1.query_start_offset, e1.query_end_offset
+        for j in range(i + 1, len(als)):
+            e2 = als[j]
+            if not e2.do_print:
+                continue
+            if e2.read_num != e1.read_num:
+                break
+            s2, e_2 = e2.query_start_offset, e2.query_end_offset
+            s, e = max(s1, s2), min(e_1, e_2)
+            overlap = e - s if e > s else 0
+            if 2 * overlap > (e_2 - s2):
+                e2.do_print = False
+
+    out = []
+    for e in als:
+        if not e.do_print:
+            continue
+        read = reads[e.read_num]
+        flag = (16 if e.strand == "-" else 0) + 64
+        seq = (read.rc_seq if e.strand == "-" else read.seq).tobytes().decode()
+        out.append("\t".join([
+            read.name, str(flag), store.chromosomes[e.chr_id].name,
+            str(1 + e.reference_start_offset), "60", _cigar(e), "*", "0",
+            "0", seq, "*", f"AS:i:{e.score}", f"ZS:i:{e.score}",
+        ]) + "\n")
+    return out

@@ -1,0 +1,84 @@
+"""Seeder stage: batched D-SOFT over a read batch, both strands, in one
+device pass (counterpart of ``darwin_tpu/seeding/seeder.py`` without the
+mesh path); chaining runs on the host per anchor.
+
+The ``dsoft_count`` pre-pass sizes the hit buffer exactly, and the anchor
+buffer is as wide as the hit buffer, so no batch ever overflows or retries
+(darwin_tpu grows capped buffers through retries to the same result).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List
+
+import numpy as np
+import torch
+
+from darwin_tpu import genome as G
+from darwin_tpu.seeding.chain import Anchor
+from darwin_tpu_torch.seeding import chain
+from darwin_tpu_torch.seeding.dsoft import dsoft_count, dsoft_device, \
+    mq_cap_for
+
+
+@dataclasses.dataclass
+class SeedResult:
+    fw_anchors: List[List[Anchor]]   # per read
+    rc_anchors: List[List[Anchor]]
+    n_queried_buckets: int
+    n_capped_buckets: int = 0        # queried buckets over the cap
+
+
+class Seeder:
+    def __init__(self, table, cfg):
+        self.table = table
+        self.cfg = cfg
+        self.max_occ = cfg.max_bucket_occupancy or table.kmer_max_occurence
+
+    def seed_batch(self, reads) -> SeedResult:
+        cfg = self.cfg
+        if not reads:
+            return SeedResult([], [], 0)
+        dev = self.table.positions.device
+        lcap = (max(r.length for r in reads) + 15) // 16 * 16
+        B = 2 * len(reads)
+        codes2 = np.zeros((B, lcap), np.uint8)
+        lengths = np.zeros(B, np.int64)
+        for i, r in enumerate(reads):
+            codes2[2 * i, :r.length] = G.encode2(r.seq)
+            codes2[2 * i + 1, :r.length] = G.encode2(r.rc_seq)
+            lengths[2 * i] = lengths[2 * i + 1] = r.length
+        codes2 = torch.from_numpy(codes2).to(dev)
+        lengths = torch.from_numpy(lengths).to(dev)
+        mq_cap = mq_cap_for(lcap - cfg.seed_size + 1, cfg.num_seeds,
+                            cfg.max_stride, cfg.do_overlap)
+        kw = dict(k=cfg.seed_size, w=cfg.minimizer_window,
+                  num_seeds=cfg.num_seeds, max_stride=cfg.max_stride,
+                  overlap=cfg.do_overlap, max_occ=self.max_occ,
+                  mq_cap=mq_cap)
+        need = dsoft_count(codes2, lengths, self.table.sorted_hashes, **kw)
+        hit_cap = max(int(need.max()), 1)
+        res = dsoft_device(codes2, lengths, self.table.sorted_hashes,
+                           self.table.positions,
+                           threshold=cfg.dsoft_threshold,
+                           bin_size=cfg.bin_size, a_cap=hit_cap,
+                           hit_cap=hit_cap, **kw)
+        counts = torch.stack([res["n_hits"], res["n_anchors"],
+                              res["n_queried_buckets"], res["n_capped"]])
+        counts = counts.cpu().numpy()
+        mh = max(int(counts[0].max()), 1)
+        ma = max(int(counts[1].max()), 1)
+        hits = torch.stack([res["hits_bin"][:, :mh], res["hits_off"][:, :mh],
+                            res["hits_pos"][:, :mh]]).cpu().numpy()
+        anc = torch.stack([res["anc_pos"][:, :ma], res["anc_off"][:, :ma],
+                           res["anc_bin"][:, :ma]]).cpu().numpy()
+
+        strands = []
+        for row in range(B):
+            strands.append(chain.chain_anchors(
+                hits[0][row], hits[1][row], hits[2][row], int(counts[0][row]),
+                anc[0][row], anc[1][row], anc[2][row], int(counts[1][row]),
+                cfg.bin_size, cfg.do_overlap))
+        return SeedResult(strands[0::2], strands[1::2],
+                          int(counts[2].sum()), int(counts[3].sum()))

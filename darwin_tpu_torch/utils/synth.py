@@ -1,0 +1,69 @@
+"""Synthetic inputs for runs on the card: random genomes, reads across a
+planted deletion, and the E. coli K-12-size reference-guided case that
+``chip_smoke.py`` (phase 5) and ``tools/profile_align.py`` align.
+
+Everything comes from a numpy seed; reads are simulated with
+``darwin_tpu.utils.simulate`` (numpy only)."""
+
+from __future__ import annotations
+
+import numpy as np
+
+from darwin_tpu.genome import GenomeStore, revcomp_bytes
+from darwin_tpu.utils.simulate import mutate_read, simulate_reads, \
+    write_fasta
+
+ECOLI_LEN = 4_641_652          # E. coli K-12 MG1655 (NC_000913.3)
+
+
+def random_genome(rng, chroms) -> GenomeStore:
+    """Uniform random ACGT chromosomes, ``chroms`` = [(name, length)]."""
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    store = GenomeStore()
+    for name, n in chroms:
+        store.add_chromosome(name, acgt[rng.integers(0, 4, n)])
+    return store.finalize()
+
+
+def write_reference(path: str, store: GenomeStore) -> None:
+    with open(path, "w") as f:
+        for c in store.chromosomes:
+            seq = store.bases[c.start:c.start + c.length_unpadded]
+            f.write(f">{c.name}\n{seq.tobytes().decode()}\n")
+
+
+def planted_deletions(rng, store, n, left=5000, gap=1500, right=5000):
+    """Reads of the first chromosome spanning a ``gap`` bp deletion, on a
+    random strand: large-tile escalation fires on them.  Returns
+    [(name, seq, (chrom, start0, strand))] as simulate_reads does."""
+    c = store.chromosomes[0]
+    out = []
+    for i in range(n):
+        start = int(rng.integers(0, c.length_unpadded - left - gap - right))
+        s0 = c.start + start
+        seq = np.concatenate([store.bases[s0:s0 + left],
+                              store.bases[s0 + left + gap:
+                                          s0 + left + gap + right]])
+        seq = mutate_read(rng, seq)
+        strand = "+" if rng.random() < 0.5 else "-"
+        if strand == "-":
+            seq = revcomp_bytes(seq)
+        out.append((f"del{i}_{c.name}_{start}_{strand}", seq,
+                    (c.name, start, strand)))
+    return out
+
+
+def ecoli_case(seed: int, directory: str) -> dict:
+    """Write ``ref.fa`` and ``reads.fa`` of the E. coli K-12-size case into
+    ``directory``: a synthetic genome of MG1655's length, 512 simulated
+    10 kb reads (error 0.04 / 0.03 / 0.03, both strands) and 16 reads
+    across a planted 1.5 kb deletion.  Returns {read name: (chrom, start0,
+    strand)}."""
+    rng = np.random.default_rng(seed)
+    store = random_genome(rng, [("ecoli_k12_synthetic", ECOLI_LEN)])
+    sim = simulate_reads(store, 512, 10_000, seed=seed + 3,
+                         error=(0.04, 0.03, 0.03))
+    sim += planted_deletions(rng, store, 16)
+    write_reference(f"{directory}/ref.fa", store)
+    write_fasta(f"{directory}/reads.fa", sim)
+    return {n: t for n, _, t in sim}
