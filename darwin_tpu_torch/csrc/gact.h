@@ -24,6 +24,7 @@ extern "C" {
 // qlen/rlen: (B,) int32 in [1, QT] / [1, RT]; start_end: (B,) uint8.
 // sub25: host pointer to the 5x5 substitution matrix, row = query code.
 // Outputs (B,) int32 score/qpos/rpos; trace (B, RT, QT) uint8 or NULL.
+// Any scoring is taken.
 int gact_dp(const uint8_t* q, const uint8_t* r, const int32_t* qlen,
             const int32_t* rlen, const uint8_t* start_end, int B, int QT,
             int RT, const int32_t* sub25, int gap_open, int gap_extend,

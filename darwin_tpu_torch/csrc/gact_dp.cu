@@ -1,16 +1,25 @@
 // gact_dp: batched GACT tile DP for Hopper (sm_90a).
 //
 // Replaces darwin_tpu/ops/gact_pallas.py:_dp_kernel (K1, lines 103-312)
-// and _dp_strip_kernel (K4, lines 343-488).  Plain PyTorch twin:
+// and _dp_strip_kernel (K4, lines 343-488), their generic-scoring branches
+// included (lines 196-223 and 417-430).  Plain PyTorch twin:
 // darwin_tpu_torch/ops/gact.py:batch_align (same results, byte for byte).
 //
 // What it computes: two-piece affine local Smith-Waterman over a batch of
 // tiles (H, E, E_L, F, F_L), in max-cell mode (earliest column with a
 // strict improvement, then the smallest q) or start-to-end mode (H at
 // (qlen-1, rlen-1)), optionally writing the 8-bit trace word per cell in
-// the (B, RT, QT) layout.  F/F_L use the prefix-max form of the
-// within-column gap recurrence (valid for gap open <= gap extend on both
-// lanes), unwindowed: H, T fields and every walked bit equal darwin_tpu's.
+// the (B, RT, QT) layout.  The within-column gap lanes are the coupled
+// recurrence itself, exact for any scoring:
+//     F(q)   = max(H(q-1) + go,  F(q-1)   + ge)
+//     F_L(q) = max(H(q-1) + goL, F_L(q-1) + geL)
+// with H(-1) = 0 and F(-1) = F_L(-1) = -inf.  The TPU kernel needs closed
+// forms (prefix-max scans, and for scorings whose gap open is cheaper than
+// their gap extend a cross-lane term besides) because its query axis is a
+// vector; here a thread walks its rows in order, so F and F_L are carried
+// down the rows in registers and across strips through the edge.  Where
+// darwin_tpu takes its generic branch every trace byte equals its own;
+// elsewhere it windows its scans, and H, T fields and every walked bit do.
 //
 // Design.  One thread block per tile; each thread owns a strip of S
 // consecutive query rows and keeps their H, E, E_L and pending E-open bits
@@ -18,18 +27,24 @@
 // the block as an anti-diagonal wavefront over strips: at step t, thread k
 // computes column t - k of its strip, having received from thread k-1
 // (through a double-buffered shared-memory edge, one __syncthreads per
-// step) H of the row above, the two gap-scan prefix carries and the row
-// above's F/F_L open predicates.  The TPU's sequential grid axis becomes
-// this in-block loop; the 512-row strips K4 needed for VMEM are gone: one
-// runtime QT up to 2048 (S = 16, 128 threads) covers the 384x384 standard
-// tiles and the 1984x960 / 960x1984 escalation tiles alike.
+// step) H, F and F_L of the row above and that row's F/F_L open
+// predicates.  The TPU's sequential grid axis becomes this in-block loop;
+// the 512-row strips K4 needed for VMEM are gone: one runtime QT up to 2048
+// (S = 16, 128 threads) covers the 384x384 standard tiles and the 1984x960
+// / 960x1984 escalation tiles alike.
 //
-// Bound: int32 ALU work (~35 integer ops per cell, no reuse to exploit),
-// plus one block barrier per wavefront step and (NT-1)/(RT+NT-1) idle
-// fill/drain.  Trace stores are S bytes per thread per step.  The later
-// levers are Hopper's DPX add-then-max instructions (__viaddmax_s32,
-// __vimax3_s32) on the recurrence, 16-bit packed lanes, and staging trace
-// rows in shared memory for wider stores.
+// Bound: int32 ALU work, no reuse to exploit.  The recurrence needs 16
+// integer operations per cell (2 for the diagonal, 2 for Hp, 10 for the
+// four gap lanes with H + open shared, 2 for H), max-cell tracking 4 more,
+// the trace word 24 more (5 compares and 7 selects of the T field, 4
+// compares, 4 selects and 2 ors of the open bits, 2 adds); the compiler
+// emits about 64 instructions per cell with trace (nvcc 12.9, S = 3),
+// moves, addressing and loop overhead included.  On top come one block
+// barrier per wavefront step and (NT-1)/(RT+NT-1) idle fill/drain.  Trace
+// stores are S bytes per thread per step.  The later levers are Hopper's
+// DPX add-then-max instructions (__viaddmax_s32, __vimax3_s32) on the
+// recurrence, 16-bit packed lanes, and staging trace rows in shared memory
+// for wider stores.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -54,10 +69,13 @@ struct Scoring {
 // What a strip hands the strip below it for one column.
 struct Edge {
   int h;     // H of the strip's last row
-  int mf;    // max_{j <= last row} (Hp(j) - ge * j)
-  int mfl;   // same for the long lane
+  int f;     // F of the last row
+  int fl;    // F_L of the last row
   int raw;   // F/F_L open predicates of the last row
 };
+
+// F(-1) = F_L(-1): survives "+ gap extend" without wrapping, never wins a max
+constexpr int NEG_INF = -(1 << 28);
 
 template <int S>
 __global__ void __launch_bounds__(NT_MAX)
@@ -106,17 +124,17 @@ gact_dp_kernel(const uint8_t* __restrict__ qcodes,
   for (int t = 0; t < n_steps; ++t) {
     const int r = t - k;
     if (r >= 0 && r < RT) {
-      int h_up, mf, mfl, raw;
+      int h_up, f, fl, raw;
       if (k == 0) {              // row -1: H = 0, F = -inf, both open
         h_up = 0;
-        mf = ge;                 // j = -1 term: 0 - ge * (-1)
-        mfl = geL;
+        f = NEG_INF;
+        fl = NEG_INF;
         raw = F_OPEN8 | FL_OPEN8;
       } else {
         const Edge up = edge[(t - 1) & 1][k - 1];
         h_up = up.h;
-        mf = up.mf;
-        mfl = up.mfl;
+        f = up.f;
+        fl = up.fl;
         raw = up.raw;
       }
       const int rc = rcol[r];
@@ -124,18 +142,16 @@ gact_dp_kernel(const uint8_t* __restrict__ qcodes,
       diag_top = h_up;
       uint8_t* trow =
           trace != nullptr ? trace + ((size_t)b * RT + r) * QT : nullptr;
-      int h = 0;
+      int h = h_up;              // H of the row above, same column
 #pragma unroll
       for (int s = 0; s < S; ++s) {
         const int q = q0 + s;
         const int dag = max(hdiag + sub_s[qc5[s] + rc], 0);
         const int e = E[s], el = EL[s];
         const int hp = max(max(dag, e), el);
-        const int f = go + ge * (q - 1) + mf;
-        const int fl = goL + geL * (q - 1) + mfl;
+        f = max(h + go, f + ge);
+        fl = max(h + goL, fl + geL);
         h = max(hp, max(f, fl));
-        mf = max(mf, hp - ge * q);
-        mfl = max(mfl, hp - geL * q);
         if (trow != nullptr && q < QT) {
           // T field: darwin_tpu's select tree (gact_pallas.py:233-244)
           const bool is_f = h == f, is_fl = h == fl, is_el = h == el;
@@ -163,7 +179,7 @@ gact_dp_kernel(const uint8_t* __restrict__ qcodes,
         }
         if (q == qlen - 1 && r == rlen - 1) hend_s = h;
       }
-      edge[t & 1][k] = Edge{h, mf, mfl, raw};
+      edge[t & 1][k] = Edge{h, f, fl, raw};
     }
     __syncthreads();
   }
@@ -198,10 +214,10 @@ gact_dp_kernel(const uint8_t* __restrict__ qcodes,
 
 template <int S>
 void launch(int B, int QT, int RT, const Scoring& sc,
-                   const uint8_t* q, const uint8_t* r, const int32_t* qlen,
-                   const int32_t* rlen, const uint8_t* se, int32_t* score,
-                   int32_t* qpos, int32_t* rpos, uint8_t* trace,
-                   cudaStream_t stream) {
+            const uint8_t* q, const uint8_t* r, const int32_t* qlen,
+            const int32_t* rlen, const uint8_t* se, int32_t* score,
+            int32_t* qpos, int32_t* rpos, uint8_t* trace,
+            cudaStream_t stream) {
   const int nt = (QT + S - 1) / S;
   gact_dp_kernel<S><<<B, nt, (size_t)RT, stream>>>(
       q, r, qlen, rlen, se, QT, RT, sc, score, qpos, rpos, trace);
@@ -227,7 +243,7 @@ extern "C" int gact_dp(const uint8_t* q, const uint8_t* r,
   // smallest strip height that keeps the block at <= NT_MAX threads
   const int need = (QT + NT_MAX - 1) / NT_MAX;
   cudaStream_t st = (cudaStream_t)stream;
-#define GACT_DP_LAUNCH(SS)                                              \
+#define GACT_DP_LAUNCH(SS)                                            \
   launch<SS>(B, QT, RT, sc, q, r, qlen, rlen, start_end, score, qpos, \
              rpos, trace, st)
   if (need <= 1)

@@ -18,7 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from darwin_tpu.genome import GenomeStore
+from darwin_tpu_torch.genome import GenomeStore, Read
 from darwin_tpu_torch.index.minimizers import scan_sequence
 
 
@@ -107,3 +107,15 @@ def build_seed_table(store: GenomeStore, cfg, device="cpu") -> SeedTable:
     return SeedTable(sorted_hashes=key >> 32, positions=key & 0xFFFFFFFF,
                      kmer_size=k, minimizer_window=w, ref_size=store.size,
                      kmer_max_occurence=cfg.kmer_max_occurence(store.size))
+
+
+def build_read_seed_table(reads: list[Read], cfg, device="cpu"
+                          ) -> tuple[SeedTable, GenomeStore]:
+    """Overlap (de-novo) mode: index the reads themselves
+    (darwin_tpu/index/seed_table.py:330-344).  The reference runs the same
+    index phase on the reads file passed as the 'reference' argument, so
+    the reads become the chromosomes of a GenomeStore and coordinates and
+    guards match."""
+    store = GenomeStore.from_numpy([r.name for r in reads],
+                                   [r.seq for r in reads])
+    return build_seed_table(store, cfg, device), store

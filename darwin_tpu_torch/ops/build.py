@@ -1,12 +1,13 @@
 """Build and load the CUDA kernels at first use.
 
-``nvcc`` compiles ``csrc/*.cu`` by hand into a shared library with a plain
-C interface (``csrc/gact.h``) for ``sm_90a``, in ``darwin_tpu_torch/_build/``
-(listed in .gitignore), named by a hash of the sources and flags so a second
-process — the CLI in a subprocess, say — loads the library the first one
-built.  The library is bound with ctypes and explicit argtypes; every entry
-point returns ``cudaGetLastError()`` and the wrappers in ``gact_cuda``
-raise when it is not 0.
+``nvcc`` compiles ``csrc/*.cu`` by hand — one ``nvcc -c`` per source, all
+started together, then one link — into a shared library with a plain C
+interface (``csrc/gact.h``; ``int_probe.cu`` states its own) for ``sm_90a``,
+in ``darwin_tpu_torch/_build/`` (listed in .gitignore), named by a hash of
+the sources and flags so a second process — the CLI in a subprocess, say —
+loads the library the first one built.  The library is bound with ctypes
+and explicit argtypes; every entry point returns ``cudaGetLastError()`` and
+the wrappers (``ops/gact_cuda``, ``tools/vpu_probe``) raise when it is not 0.
 
 Nothing here runs at import: the CPU tests import every module on a host
 with no nvcc.
@@ -16,6 +17,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+from concurrent.futures import ThreadPoolExecutor
 import os
 import shutil
 import subprocess
@@ -25,10 +27,10 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("gact_dp.cu", "gact_tb.cu")
+SOURCES = ("gact_dp.cu", "gact_tb.cu", "int_probe.cu")
 HEADERS = ("gact.h",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib = None
@@ -38,7 +40,7 @@ _lib = None
 BUILD_INFO: dict = {}
 
 
-def _nvcc() -> str:
+def nvcc_path() -> str:
     path = shutil.which("nvcc")
     if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
         path = "/usr/local/cuda/bin/nvcc"
@@ -56,18 +58,32 @@ def _lib_path() -> str:
     return os.path.join(BUILD_DIR, f"libgact_{h.hexdigest()[:16]}.so")
 
 
-def _build(path: str) -> None:
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[os.path.join(CSRC, s) for s in SOURCES]]
-    t0 = time.perf_counter()
+def _run(cmd) -> str:
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                            f"{' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, path)
-    BUILD_INFO.update(seconds=time.perf_counter() - t0, log=proc.stderr)
+    return proc.stderr
+
+
+def _build(path: str) -> None:
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = nvcc_path()
+    tmp = f"{path}.{os.getpid()}.tmp"
+    objs = [f"{tmp}.{s}.o" for s in SOURCES]
+    t0 = time.perf_counter()
+    try:
+        with ThreadPoolExecutor(len(SOURCES)) as pool:
+            logs = list(pool.map(_run, [
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, os.path.join(CSRC, src)]
+                for src, obj in zip(SOURCES, objs)]))
+        logs.append(_run([nvcc, "-shared", "-o", tmp, *objs]))
+        os.replace(tmp, path)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    BUILD_INFO.update(seconds=time.perf_counter() - t0, log="".join(logs))
 
 
 def _bind(lib) -> None:
@@ -77,6 +93,8 @@ def _bind(lib) -> None:
     lib.gact_dp.restype = i
     lib.gact_tb.argtypes = [p, p, p, i, i, i, i, p, p, p, p]
     lib.gact_tb.restype = i
+    lib.int_probe.argtypes = [p, p, i, i, p]
+    lib.int_probe.restype = i
 
 
 def load():

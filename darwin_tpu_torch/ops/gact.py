@@ -10,13 +10,17 @@ device; ``ops/gact_cuda.py`` routes CPU tensors here and CUDA tensors to
 the kernels.
 
 The DP is the exact recurrence of ``darwin_tpu.ops.oracle.clean_align``
-(two-piece affine local Smith-Waterman, prefix-max gap scans), with one
-deliberate difference: the within-column gap prefix maxima are NOT windowed
-(``oracle.gap_scan_windows``).  H, the T field, scores, max positions and
-every walked traceback record are identical; only F/F_L open bits at cells
-no traceback can read may differ from ``darwin_tpu``'s trace bytes (see
-``gap_scan_windows`` for the proof).  The port's kernel and twin agree
-byte for byte.
+(two-piece affine local Smith-Waterman), for any scoring: the within-column
+lanes F/F_L solve the coupled recurrence F(q) = max(H(q-1) + go, F(q-1) +
+ge), the kernel row by row, this twin in closed form.  ``darwin_tpu`` does
+so only where opening a gap is cheaper than extending it on either lane;
+elsewhere (the default ``params.cfg``) it takes prefix-max scans and
+windows them (``oracle.gap_scan_windows``).  There H, the T field, scores,
+max positions and every walked traceback record are identical; only F/F_L
+open bits at cells no traceback can read may differ from ``darwin_tpu``'s
+trace bytes (see ``gap_scan_windows`` for the proof).  Where ``darwin_tpu``
+takes the coupled recurrence too, every trace byte is equal.  The port's
+kernel and twin agree byte for byte for every scoring.
 
 Trace layout: ``(B, RT, QT)`` uint8, a tile contiguous (``darwin_tpu``
 uses ``(RT, B, QT)`` for lax and ``(RT, QT, B)`` for Pallas).
@@ -71,16 +75,7 @@ def make_params(cfg) -> GactParams:
         long_gap_extend=int(cfg.long_gap_extend))
 
 
-def check_prefix_scoring(params: GactParams):
-    """The port covers the prefix-gap domain (opening never cheaper than
-    extending, both lanes) — every sane scoring and the default
-    params.cfg.  The generic-scoring branch of darwin_tpu's kernels
-    (gact_pallas.py:196-223, :417-430) is not ported yet."""
-    if not (params.gap_open <= params.gap_extend
-            and params.long_gap_open <= params.long_gap_extend):
-        raise NotImplementedError(
-            "generic gap scorings (gap open > gap extend) are not ported "
-            "to darwin_tpu_torch yet")
+NEG_INF = -(1 << 28)    # F(-1): survives "+ gap extend", never wins a max
 
 
 def batch_align(qcodes, rcodes, qlens, rlens, start_end, params: GactParams,
@@ -94,7 +89,6 @@ def batch_align(qcodes, rcodes, qlens, rlens, start_end, params: GactParams,
     Returns a dict of (B,) int32 ``score``, ``query_max_pos``,
     ``ref_max_pos`` and, with_trace, ``trace`` (B, RT, QT) uint8.
     """
-    check_prefix_scoring(params)
     dev = qcodes.device
     i32 = torch.int32
     B, QT = qcodes.shape
@@ -110,17 +104,24 @@ def batch_align(qcodes, rcodes, qlens, rlens, start_end, params: GactParams,
     q_idx = torch.arange(QT, dtype=i32, device=dev)[None, :]
     valid_q = q_idx < qlens[:, None]
     q_end = (qlens - 1).clamp(0, max(QT - 1, 0)).long()[:, None]
-    # gap scans: F(q) = go + ge*(q-1) + max_{j=-1..q-1}(Hp(j) - ge*j),
-    # the j = -1 term (Hp(-1) = 0) being the column of ``ext`` below
-    ramp_f = ge * (q_idx - 1) + go
-    ramp_fl = geL * (q_idx - 1) + goL
-    tilt_f = ge * q_idx[:, :-1]
-    tilt_fl = geL * q_idx[:, :-1]
+    # the coupled recurrence F(q) = max(H(q-1)+go, F(q-1)+ge) (same for
+    # F_L) in closed form (gact_pallas.py:196-223), exact for any scoring:
+    # two prefix-max scans go + sf*(q-1) + max_{j=-1..q-1}(Hp(j) - sf*j)
+    # with slopes sf = max(go, ge), sfl = max(goL, geL), the j = -1 term
+    # (Hp(-1) = 0) being the first column of the cummax input below, plus
+    # one term p3 shared by both lanes, a one-row shift of the steeper scan
+    sf, sfl = max(go, ge), max(goL, geL)
+    slope_m = max(sf, sfl)
+    ramp_f = sf * (q_idx - 1) + go
+    ramp_fl = sfl * (q_idx - 1) + goL
+    ramp_p3 = slope_m * (q_idx - 1) + (go + goL - slope_m)
+    tilt_f = sf * q_idx[:, :-1]
+    tilt_fl = sfl * q_idx[:, :-1]
 
     def col(v):
         return torch.full((B, 1), v, dtype=i32, device=dev)
 
-    zero1, ge1, geL1 = col(0), col(ge), col(geL)
+    zero1, sf1, sfl1, neg1 = col(0), col(sf), col(sfl), col(NEG_INF)
     raw_row0 = col(F_OPEN8 | FL_OPEN8)     # row 0's F/F_L bits are open
     h = torch.zeros((B, QT), dtype=i32, device=dev)
     e = torch.full((B, QT), go, dtype=i32, device=dev)
@@ -139,10 +140,14 @@ def batch_align(qcodes, rcodes, qlens, rlens, start_end, params: GactParams,
         prof = prof.squeeze(2)
         dag = (torch.cat([zero1, h[:, :-1]], 1) + prof).clamp_min(0)
         hp = torch.maximum(torch.maximum(dag, e), el)
-        f = ramp_f + torch.cummax(
-            torch.cat([ge1, hp[:, :-1] - tilt_f], 1), 1).values
-        fl = ramp_fl + torch.cummax(
-            torch.cat([geL1, hp[:, :-1] - tilt_fl], 1), 1).values
+        cmf = torch.cummax(
+            torch.cat([sf1, hp[:, :-1] - tilt_f], 1), 1).values
+        cmfl = torch.cummax(
+            torch.cat([sfl1, hp[:, :-1] - tilt_fl], 1), 1).values
+        cm = cmf if sf >= sfl else cmfl
+        p3 = ramp_p3 + torch.cat([neg1, cm[:, :-1]], 1)
+        f = torch.maximum(ramp_f + cmf, p3)
+        fl = torch.maximum(ramp_fl + cmfl, p3)
         h = torch.maximum(hp, torch.maximum(f, fl))
 
         if with_trace:

@@ -1,5 +1,6 @@
-"""Wrappers of the two GACT kernels (counterpart of
-``darwin_tpu/ops/gact_pallas.py``'s ``_dp_call`` and ``_tb_call``).
+"""Wrappers of the GACT kernels (counterpart of
+``darwin_tpu/ops/gact_pallas.py``'s ``_dp_call`` and ``_tb_call``), and the
+launch counts of every kernel of the package.
 
 ``dp_tiles`` launches ``csrc/gact_dp.cu`` and ``traceback_tiles`` launches
 ``csrc/gact_tb.cu`` for CUDA tensors, on the current stream, without
@@ -7,7 +8,8 @@ synchronising.  A tensor on the CPU takes the kernel's plain twin in
 ``ops/gact.py``; any other device raises.  An empty batch returns empty
 outputs on any device and launches nothing.  Each wrapper checks device,
 dtype, shape and contiguity, allocates its outputs, raises when the launch
-is refused (the tile limits live in ``csrc/gact.h`` alone), and adds one
+is refused (the limits live in the sources alone: ``csrc/gact.h``,
+``csrc/int_probe.cu``), and adds one
 to its launch count (``LAUNCHES``) where — and only where — it launches
 its kernel.
 """
@@ -22,9 +24,9 @@ from darwin_tpu_torch.ops import build, gact
 
 # kernel launches in this process, by kernel (plain-twin calls on CPU
 # tensors do not count); reset_launches() zeroes them
-LAUNCHES = {"gact_dp": 0, "gact_tb": 0}
+LAUNCHES = {"gact_dp": 0, "gact_tb": 0, "int_probe": 0}
 
-_CUDA_ERROR_INVALID_VALUE = 1      # what csrc/gact.h's limits checks return
+_CUDA_ERROR_INVALID_VALUE = 1      # what the sources' limits checks return
 
 
 def reset_launches():
@@ -32,7 +34,7 @@ def reset_launches():
         LAUNCHES[k] = 0
 
 
-def _check(name, t, dtype, ndim, device):
+def check_tensor(name, t, dtype, ndim, device):
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
     if t.dtype != dtype or t.dim() != ndim:
@@ -44,19 +46,19 @@ def _check(name, t, dtype, ndim, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _ptr(t):
+def ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _stream(device):
+def stream_ptr(device):
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def _launched(name, err, shape):
+def count_launch(name, err, shape):
     """Count a launch the library made; raise on a refusal."""
     if err == _CUDA_ERROR_INVALID_VALUE:
-        raise ValueError(f"{name}: {shape} is outside the limits of "
-                         f"csrc/gact.h")
+        raise ValueError(f"{name}: {shape} is outside the limits its "
+                         f"source states (csrc/)")
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
@@ -69,16 +71,15 @@ def dp_tiles(qcodes, rcodes, qlens, rlens, start_end, params, with_trace):
     ``trace`` (B, RT, QT) uint8 — the tile-contiguous layout
     (darwin_tpu's Pallas kernel emits (RT, QT, B))."""
     dev = qcodes.device
-    _check("qcodes", qcodes, torch.uint8, 2, dev)
-    _check("rcodes", rcodes, torch.uint8, 2, dev)
+    check_tensor("qcodes", qcodes, torch.uint8, 2, dev)
+    check_tensor("rcodes", rcodes, torch.uint8, 2, dev)
     for name, t in (("qlens", qlens), ("rlens", rlens)):
-        _check(name, t, torch.int32, 1, dev)
-    _check("start_end", start_end, torch.bool, 1, dev)
+        check_tensor(name, t, torch.int32, 1, dev)
+    check_tensor("start_end", start_end, torch.bool, 1, dev)
     (B, QT), RT = qcodes.shape, rcodes.shape[1]
     if not (rcodes.shape[0] == qlens.shape[0] == rlens.shape[0]
             == start_end.shape[0] == B):
         raise ValueError("dp_tiles: batch sizes differ")
-    gact.check_prefix_scoring(params)
     if B == 0:
         out = {k: torch.empty(0, dtype=torch.int32, device=dev)
                for k in ("score", "query_max_pos", "ref_max_pos")}
@@ -99,14 +100,14 @@ def dp_tiles(qcodes, rcodes, qlens, rlens, start_end, params, with_trace):
     sub = (ctypes.c_int32 * 25)(*[v for row in params.sub for v in row])
     with torch.cuda.device(dev):
         err = lib.gact_dp(
-            _ptr(qcodes), _ptr(rcodes), _ptr(qlens), _ptr(rlens),
-            _ptr(start_end), B, QT, RT, ctypes.cast(sub, ctypes.c_void_p),
+            ptr(qcodes), ptr(rcodes), ptr(qlens), ptr(rlens),
+            ptr(start_end), B, QT, RT, ctypes.cast(sub, ctypes.c_void_p),
             params.gap_open, params.gap_extend, params.long_gap_open,
-            params.long_gap_extend, _ptr(out["score"]),
-            _ptr(out["query_max_pos"]), _ptr(out["ref_max_pos"]),
+            params.long_gap_extend, ptr(out["score"]),
+            ptr(out["query_max_pos"]), ptr(out["ref_max_pos"]),
             ctypes.c_void_p(trace.data_ptr() if with_trace else None),
-            _stream(dev))
-    _launched("gact_dp", err, f"tile {QT}x{RT} (query x ref), B={B}")
+            stream_ptr(dev))
+    count_launch("gact_dp", err, f"tile {QT}x{RT} (query x ref), B={B}")
     if with_trace:
         out["trace"] = trace
     return out
@@ -117,9 +118,9 @@ def traceback_tiles(trace, start_q, start_r, max_tb: int):
     (B,) int32.  Returns (rec (RT, B) int32 — ``nI | closing << 14`` per
     visited column, 0 elsewhere — q_steps (B,) int32, r_steps (B,) int32)."""
     dev = trace.device
-    _check("trace", trace, torch.uint8, 3, dev)
-    _check("start_q", start_q, torch.int32, 1, dev)
-    _check("start_r", start_r, torch.int32, 1, dev)
+    check_tensor("trace", trace, torch.uint8, 3, dev)
+    check_tensor("start_q", start_q, torch.int32, 1, dev)
+    check_tensor("start_r", start_r, torch.int32, 1, dev)
     B, RT, QT = trace.shape
     if not start_q.shape[0] == start_r.shape[0] == B:
         raise ValueError("traceback_tiles: batch sizes differ")
@@ -138,8 +139,8 @@ def traceback_tiles(trace, start_q, start_r, max_tb: int):
     q_steps = torch.empty(B, dtype=torch.int32, device=dev)
     r_steps = torch.empty(B, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        err = lib.gact_tb(_ptr(trace), _ptr(start_q), _ptr(start_r), B, QT,
-                          RT, int(max_tb), _ptr(rec), _ptr(q_steps),
-                          _ptr(r_steps), _stream(dev))
-    _launched("gact_tb", err, f"trace {QT}x{RT} (query x ref), B={B}")
+        err = lib.gact_tb(ptr(trace), ptr(start_q), ptr(start_r), B, QT,
+                          RT, int(max_tb), ptr(rec), ptr(q_steps),
+                          ptr(r_steps), stream_ptr(dev))
+    count_launch("gact_tb", err, f"trace {QT}x{RT} (query x ref), B={B}")
     return rec, q_steps, r_steps

@@ -1,15 +1,16 @@
-"""End-to-end entry points, reference-guided mode (counterpart of
+"""End-to-end entry points, both modes (counterpart of
 ``darwin_tpu/pipeline/align.py``'s ``Aligner`` and ``run``).
 
-Index phase: reference FASTA -> GenomeStore -> SeedTable on the device.
+Index phase: reference FASTA -> GenomeStore -> SeedTable on the device (in
+overlap mode the "reference" is the reads file itself).
 Align phase, per read batch: Seeder (device D-SOFT + host chaining) ->
 filter (device first tiles + host slope filter) -> ExtensionManager (device
-GACT tiles + host decode) -> SAM.  stdout and the 7-line counter block are
-byte-identical to darwin_tpu's.
+GACT tiles + host decode) -> SAM (reference-guided) or MHAP (overlap).
+stdout and the 7-line counter block are byte-identical to darwin_tpu's.
 
-Not ported yet: overlap mode (MHAP), read-batch pipelining
-(``pipeline_depth`` > 1) and stage telemetry, ``--index-cache``, the csr
-index layout, meshes and multi-host runs.
+Not ported yet: read-batch pipelining (``pipeline_depth`` > 1) and stage
+telemetry, ``--index-cache``, the csr index layout, meshes and multi-host
+runs.
 """
 
 from __future__ import annotations
@@ -21,10 +22,10 @@ from typing import List
 import numpy as np
 import torch
 
-from darwin_tpu.config import Config
-from darwin_tpu.genome import GenomeStore, Read, encode5
-from darwin_tpu.io.fasta import iter_read_batches, load_genome
-from darwin_tpu.pipeline import filter as flt
+from darwin_tpu_torch.config import Config
+from darwin_tpu_torch.genome import GenomeStore, Read, encode5
+from darwin_tpu_torch.io.fasta import iter_read_batches, load_genome
+from darwin_tpu_torch.pipeline import filter as flt
 from darwin_tpu_torch.index.seed_table import SeedTable, build_seed_table
 from darwin_tpu_torch.ops import gact
 from darwin_tpu_torch.ops.dispatch import first_tile_scores
@@ -54,9 +55,6 @@ def new_counters():
 class Aligner:
     def __init__(self, cfg: Config, store: GenomeStore,
                  table: SeedTable | None = None, device="cuda"):
-        if cfg.do_overlap:
-            raise NotImplementedError(
-                "overlap mode is not ported to darwin_tpu_torch yet")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.store = store
@@ -139,19 +137,20 @@ class Aligner:
         for i in range(len(reads)):
             alignments.extend(emitted[2 * i])
             alignments.extend(emitted[2 * i + 1])
+        if cfg.do_overlap:
+            return printer.mhap_lines(alignments, reads, self.store, cfg)
         return printer.sam_lines(alignments, reads, self.store)
 
 
 def run(ref_path: str, reads_path: str, do_overlap: bool,
         cfg: Config | None = None, out=None, err=None,
         reads_per_batch: int = 128, device="cuda") -> dict:
-    """Align ``reads_path`` against ``ref_path`` on ``device``; SAM to
-    ``out``, progress and counters to ``err``.  Read batches run one at a
-    time (darwin_tpu's default overlaps two; outputs are the same at any
-    depth).  Returns the counter dict."""
-    if do_overlap:
-        raise NotImplementedError(
-            "overlap mode is not ported to darwin_tpu_torch yet")
+    """Align ``reads_path`` against ``ref_path`` on ``device``; SAM
+    (``do_overlap`` false) or MHAP (true; ``ref_path`` is then a reads
+    file too, usually the same one) to ``out``, progress and counters to
+    ``err``.  Read batches run one at a time (darwin_tpu's default
+    overlaps two; outputs are the same at any depth).  Returns the counter
+    dict."""
     dev = resolve_device(device)
     out = out or sys.stdout
     err = err or sys.stderr
@@ -179,7 +178,7 @@ def run(ref_path: str, reads_path: str, do_overlap: bool,
     header_done = False
     for batch in iter_read_batches(reads_path, reads_per_batch):
         lines = aligner.align_batch(batch)
-        if lines and not header_done:
+        if lines and not do_overlap and not header_done:
             out.write(printer.sam_header(store))
             header_done = True
         out.writelines(lines)

@@ -24,9 +24,9 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from darwin_tpu import native
-from darwin_tpu.genome import encode5
-from darwin_tpu.pipeline.filter import ExtendLocation
+from darwin_tpu_torch import native
+from darwin_tpu_torch.genome import encode5
+from darwin_tpu_torch.pipeline.filter import ExtendLocation
 from darwin_tpu_torch.ops.dispatch import extend_tiles_async
 
 _CODE5 = np.full(256, 4, np.int8)
@@ -360,9 +360,8 @@ class ExtensionManager:
             opsmat, sel, n_ops, stops, dirs, self.bases, rsa, self.q_ascii,
             qoff, cr, cq, rl, ql)
         if res is None:
-            raise RuntimeError("the native host library (native/darwin_"
-                               "native.cpp, built with g++ at first use) is "
-                               "unavailable; tile decoding needs it")
+            raise RuntimeError("tile decoding: "
+                               + native.unavailable_reason())
         out_ref, out_q, cols, new_ref, new_q, rb, qb = res
         out = {}
         for i, (b, ei) in enumerate(tiles):

@@ -15,8 +15,7 @@ from typing import List
 import numpy as np
 import torch
 
-from darwin_tpu import genome as G
-from darwin_tpu.seeding.chain import Anchor
+from darwin_tpu_torch import genome as G
 from darwin_tpu_torch.seeding import chain
 from darwin_tpu_torch.seeding.dsoft import dsoft_count, dsoft_device, \
     mq_cap_for
@@ -24,8 +23,8 @@ from darwin_tpu_torch.seeding.dsoft import dsoft_count, dsoft_device, \
 
 @dataclasses.dataclass
 class SeedResult:
-    fw_anchors: List[List[Anchor]]   # per read
-    rc_anchors: List[List[Anchor]]
+    fw_anchors: List[List[chain.Anchor]]   # per read
+    rc_anchors: List[List[chain.Anchor]]
     n_queried_buckets: int
     n_capped_buckets: int = 0        # queried buckets over the cap
 

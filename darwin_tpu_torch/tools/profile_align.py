@@ -1,11 +1,16 @@
 """Where the align phase's time goes, on one CUDA card.
 
-    python -m darwin_tpu_torch.tools.profile_align [--out DIR]
+    python -m darwin_tpu_torch.tools.profile_align [--out DIR] \
+        [--case ecoli|ecoli_generic|overlap]
 
-Writes the E. coli K-12-size case of ``chip_smoke.py`` phase 5
-(``utils.synth.ecoli_case``, seed 0) and aligns it ``RUNS`` times in one
-process through ``pipeline.align.run`` on ``cuda``.  The first run is
-cold: it builds the kernels unless ``_build/`` already holds them.
+Writes one of ``chip_smoke.py``'s real-size cases (seed 0) — ``ecoli``:
+the E. coli K-12-size reference-guided case of phase 5
+(``utils.synth.ecoli_case``); ``ecoli_generic``: the same with the
+generic-scoring ``params.cfg`` of phase 6; ``overlap``: the reads-vs-reads
+case of phase 7 (``utils.synth.overlap_case``) — and aligns it ``RUNS``
+times in one process through ``pipeline.align.run`` on ``cuda``.  The
+first run is cold: it builds the kernels unless ``_build/`` already holds
+them.
 
 Per run it prints the align phase's seconds and reads/s and the host
 seconds of each stage.  Stages are timed by wrapping the port's functions
@@ -39,7 +44,8 @@ from contextlib import contextmanager
 
 import torch
 
-from darwin_tpu import native
+from darwin_tpu_torch import native
+from darwin_tpu_torch.config import Config, load_config
 from darwin_tpu_torch.pipeline import align, extend, printer
 from darwin_tpu_torch.seeding import seeder
 
@@ -55,6 +61,7 @@ STAGES = (
     ("ext_decode_wave", extend.ExtensionManager, "_decode_wave"),
     ("ext_native_decode", native, "decode_ops_batch_native"),
     ("print", printer, "sam_lines"),
+    ("print", printer, "mhap_lines"),
 )
 # the resolve() closures ext_enqueue returns: fetch + record expansion
 RESOLVE_STAGE = "ext_resolve_fetch_expand"
@@ -119,6 +126,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="directory for profile_table.txt")
+    ap.add_argument("--case", default="ecoli",
+                    choices=("ecoli", "ecoli_generic", "overlap"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_align: no CUDA device", file=sys.stderr)
@@ -130,10 +139,20 @@ def main(argv=None) -> int:
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     from darwin_tpu_torch.utils import synth
-    summary = {"card": smi, "runs": []}
+    summary = {"card": smi, "case": args.case, "runs": []}
+    overlap = args.case == "overlap"
     with tempfile.TemporaryDirectory() as tmp:
-        truth = synth.ecoli_case(0, tmp)
         ref, reads = f"{tmp}/ref.fa", f"{tmp}/reads.fa"
+        cfg = Config()
+        if overlap:
+            truth = synth.overlap_case(0, tmp)
+            ref = reads
+        else:
+            truth = synth.ecoli_case(0, tmp)
+        if args.case == "ecoli_generic":
+            with open(f"{tmp}/params.cfg", "w") as f:
+                f.write(synth.GENERIC_PARAMS_CFG)
+            cfg = load_config(f"{tmp}/params.cfg")
         for i in range(RUNS):
             last = i == RUNS - 1
             out, err = io.StringIO(), io.StringIO()
@@ -142,13 +161,13 @@ def main(argv=None) -> int:
                     with profile(activities=[ProfilerActivity.CPU,
                                              ProfilerActivity.CUDA]) as prof:
                         t0 = time.perf_counter()
-                        align.run(ref, reads, False, out=out, err=err,
-                                  device="cuda")
+                        align.run(ref, reads, overlap, cfg=cfg, out=out,
+                                  err=err, device="cuda")
                         torch.cuda.synchronize()
                         wall = time.perf_counter() - t0
                 else:
-                    align.run(ref, reads, False, out=out, err=err,
-                              device="cuda")
+                    align.run(ref, reads, overlap, cfg=cfg, out=out,
+                              err=err, device="cuda")
             align_s = _align_s(err.getvalue())
             row = {"align_s": align_s, "reads_per_s": len(truth) / align_s,
                    "stages_s": dict(sorted(acc.items(),

@@ -1,19 +1,26 @@
 """Synthetic inputs for runs on the card: random genomes, reads across a
-planted deletion, and the E. coli K-12-size reference-guided case that
-``chip_smoke.py`` (phase 5) and ``tools/profile_align.py`` align.
+planted deletion, the E. coli K-12-size reference-guided case and the
+overlap case that ``chip_smoke.py`` and ``tools/profile_align.py`` align,
+and the generic-scoring ``params.cfg``.
 
 Everything comes from a numpy seed; reads are simulated with
-``darwin_tpu.utils.simulate`` (numpy only)."""
+``utils.simulate`` (numpy only)."""
 
 from __future__ import annotations
 
 import numpy as np
 
-from darwin_tpu.genome import GenomeStore, revcomp_bytes
-from darwin_tpu.utils.simulate import mutate_read, simulate_reads, \
+from darwin_tpu_torch.genome import GenomeStore, revcomp_bytes
+from darwin_tpu_torch.utils.simulate import mutate_read, simulate_reads, \
     write_fasta
 
 ECOLI_LEN = 4_641_652          # E. coli K-12 MG1655 (NC_000913.3)
+
+# A legal params.cfg whose gap opens are cheaper than its gap extends on
+# both lanes, everything else default: darwin_tpu's tile DP takes its
+# generic branch for it (the port's kernel is one form for every scoring).
+GENERIC_PARAMS_CFG = ("[GACT_scoring]\ngap_open = -1\ngap_extend = -3\n"
+                      "long_gap_open = -2\nlong_gap_extend = -6\n")
 
 
 def random_genome(rng, chroms) -> GenomeStore:
@@ -67,3 +74,19 @@ def ecoli_case(seed: int, directory: str) -> dict:
     write_reference(f"{directory}/ref.fa", store)
     write_fasta(f"{directory}/reads.fa", sim)
     return {n: t for n, _, t in sim}
+
+
+def overlap_case(seed: int, directory: str, genome_len: int = 500_000,
+                 n_reads: int = 512, read_len: int = 10_000) -> dict:
+    """Write ``reads.fa`` of the overlap case into ``directory``:
+    ``n_reads`` simulated reads of ``read_len`` (error 0.04 / 0.03 / 0.03,
+    both strands) drawn uniformly from one synthetic chromosome — 512 x
+    10 kb over 500 kbp is 10x coverage.  Returns {read name: (start0,
+    end0, strand)}, the span each read was drawn from."""
+    rng = np.random.default_rng(seed)
+    store = random_genome(rng, [("overlap_synthetic", genome_len)])
+    sim = simulate_reads(store, n_reads, read_len, seed=seed + 5,
+                         error=(0.04, 0.03, 0.03))
+    write_fasta(f"{directory}/reads.fa", sim)
+    return {n: (start, start + read_len, strand)
+            for n, _, (_, start, strand) in sim}

@@ -125,3 +125,21 @@ def test_seeder_matches_darwin_tpu(world):
                 assert x.left_chained.tolist() == y.left_chained.tolist()
                 assert x.right_chained.tolist() == y.right_chained.tolist()
     assert n > 0
+
+
+def test_failed_host_build_names_its_cause(monkeypatch, tmp_path):
+    """When the host library does not build, chaining raises with the
+    compiler's own message, not a bare "unavailable"."""
+    from darwin_tpu_torch import native
+    from darwin_tpu_torch.seeding.chain import chain_anchors
+    bad = tmp_path / "darwin_native.cpp"
+    bad.write_text("this is not C++\n")
+    for name, value in (("_SRC", str(bad)), ("_PKG", str(tmp_path)),
+                        ("_tried", False), ("_lib", None), ("_error", "")):
+        monkeypatch.setattr(native, name, value)
+    assert not native.available()
+    one = np.zeros(1, np.int64)
+    with pytest.raises(RuntimeError, match=r"(?s)chaining.*g\+\+.*error"):
+        chain_anchors(one, one.astype(np.int32), one.astype(np.int32), 1,
+                      one.astype(np.int32), one.astype(np.int32), one, 1,
+                      64, False)

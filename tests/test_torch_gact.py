@@ -7,7 +7,10 @@ Trace bytes: the port's gap scans are unwindowed, darwin_tpu windows the
 dominated short lane (oracle.gap_scan_windows: 32 rows at the default
 scoring), so the F_OPEN8 bit may differ at cells no traceback reads.  Trace
 bytes are compared inside [0, qlen) x [0, rlen) with that bit masked when
-the window is active; the walked records are compared whole.
+the window is active; the walked records are compared whole.  Generic
+scorings (gap open cheaper than gap extend on either lane) are scanned
+unwindowed by both packages: there every trace byte of the valid region is
+compared, unmasked.
 """
 
 import numpy as np
@@ -15,16 +18,57 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from darwin_tpu.config import Config
+from darwin_tpu.config import Config as JConfig
 from darwin_tpu.ops import gact as jgact, gact_pallas, oracle
+from darwin_tpu_torch.config import Config
 from darwin_tpu_torch.ops import gact, gact_cuda
 from tests.test_gact_device import _make_batch
 
 torch.set_num_threads(2)
 
 CFG = Config()
-JPARAMS = jgact.make_params(CFG)
+JPARAMS = jgact.make_params(JConfig())
 PARAMS = gact.make_params(CFG)
+
+# scorings outside the prefix-gap domain: (sub list, go, ge, goL, geL).
+# "generic" is both lanes open-cheaper; "mixed" only the short lane;
+# "tie_rich" has match = -mismatch and small gaps, so lanes tie often and
+# the T-field tree and the open bits decide the path
+TIE_SUB = [1, -1, -1, -1, 1, -1, -1, 1, -1, 1, 0]
+GENERIC = {
+    "generic": (None, -1, -3, -2, -6),
+    "mixed": (None, -1, -3, -25, -1),
+    "tie_rich": (TIE_SUB, -1, -2, -1, -3),
+}
+# scorings inside it (gap open <= gap extend on both lanes), where
+# darwin_tpu takes its prefix-max scans and the port the same one
+# recurrence: the default, a tie-rich one, open = extend, and two where a
+# gap opened right after the other lane's gap is cheapest
+PREFIX = {
+    "default": (None, CFG.gap_open, CFG.gap_extend, CFG.long_gap_open,
+                CFG.long_gap_extend),
+    "prefix_tie_rich": (TIE_SUB, -2, -1, -3, -1),
+    "prefix_open_is_extend": (TIE_SUB, -1, -1, -2, -1),
+    "prefix_cross_lane": (None, -1, -1, -30, -3),
+    "prefix_cross_lane_tie": (TIE_SUB, -5, -1, -2, -2),
+}
+
+
+def _scoring(name):
+    """(darwin_tpu params, port params) of one GENERIC or PREFIX
+    scoring."""
+    sub, go, ge, goL, geL = {**GENERIC, **PREFIX}[name]
+    out = []
+    for cls, make in ((JConfig, jgact.make_params), (Config,
+                                                    gact.make_params)):
+        cfg = cls()
+        if sub is not None:
+            cfg.gact_sub_mat = list(sub)
+        cfg.gap_open, cfg.gap_extend = go, ge
+        cfg.long_gap_open, cfg.long_gap_extend = goL, geL
+        out.append(make(cfg))
+    assert (go <= ge and goL <= geL) == (name in PREFIX)
+    return tuple(out)
 
 
 def _masks(qt):
@@ -34,16 +78,16 @@ def _masks(qt):
     return 0xFF & ~gact.F_OPEN8 if wf < qt else 0xFF
 
 
-def _port(q, r, ql, rl, se, with_trace=True):
+def _port(q, r, ql, rl, se, with_trace=True, params=PARAMS):
     return gact.batch_align(torch.from_numpy(q), torch.from_numpy(r),
                             torch.from_numpy(ql), torch.from_numpy(rl),
-                            torch.from_numpy(se), PARAMS,
+                            torch.from_numpy(se), params,
                             with_trace=with_trace)
 
 
-def _jargs(q, r, ql, rl, se):
+def _jargs(q, r, ql, rl, se, jparams=JPARAMS):
     return (jnp.asarray(q), jnp.asarray(r), jnp.asarray(ql),
-            jnp.asarray(rl), jnp.asarray(se), JPARAMS)
+            jnp.asarray(rl), jnp.asarray(se), jparams)
 
 
 def _assert_trace_equal(port_tr, ref_tr_brq, ql, rl, mask):
@@ -226,8 +270,13 @@ def test_wrappers_take_the_twin_on_cpu_and_check_inputs():
     with pytest.raises(ValueError):
         gact_cuda.traceback_tiles(got["trace"], sq[:2], sr, 80)
     generic = PARAMS._replace(gap_open=-1, gap_extend=-3)
-    with pytest.raises(NotImplementedError):
-        gact_cuda.dp_tiles(*args, generic, True)
+    got = gact_cuda.dp_tiles(*args, generic, True)     # any scoring is taken
+    want = gact.batch_align(*args, generic, with_trace=True)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert not torch.equal(got["trace"], gact.batch_align(
+        *args, PARAMS, with_trace=True)["trace"])
+    assert gact_cuda.LAUNCHES == before
 
 
 def test_empty_batch_launches_nothing(monkeypatch):
@@ -277,3 +326,126 @@ def test_empty_side_tiles_match_lax():
     _, n_ops = gact.expand_records(rec.numpy(), B, QT + RT)
     np.testing.assert_array_equal(n_ops, np.asarray(ref["n_ops"]))
     assert n_ops[0] == n_ops[1] == 0
+
+
+def _assert_generic_tiles(name, q, r, ql, rl, se, all_start_end=False,
+                          lax=True):
+    """Port twin vs darwin_tpu (lax scan and Pallas in interpret mode) on
+    one generic scoring: scores, positions, every trace byte of the valid
+    region unmasked, and the traceback records."""
+    jparams, params = _scoring(name)
+    QT = q.shape[1]
+    B = len(ql)
+    port = _port(q, r, ql, rl, se, params=params)
+    pal = gact_pallas.batch_align(*_jargs(q, r, ql, rl, se, jparams),
+                                  with_trace=True,
+                                  all_start_end=all_start_end,
+                                  interpret=True)
+    refs = [("pallas", pal, (2, 0, 1))]
+    if lax:
+        refs.append(("lax", jgact.batch_align(
+            *_jargs(q, r, ql, rl, se, jparams), with_trace=True), (1, 0, 2)))
+    for what, ref, axes in refs:
+        for k in ("score", "query_max_pos", "ref_max_pos"):
+            np.testing.assert_array_equal(
+                port[k].numpy(), np.asarray(ref[k]), err_msg=f"{what} {k}")
+        _assert_trace_equal(port["trace"].numpy(),
+                            np.asarray(ref["trace"]).transpose(*axes)[:B],
+                            ql, rl, 0xFF)
+    sq, sr = _tb_starts(port, ql, rl, se)
+    Bp = pal["trace"].shape[2]
+    pad = lambda a: jnp.asarray(np.pad(a, (0, Bp - B), constant_values=-1))
+    rec_j, qs_j, rs_j, _ = gact_pallas._tb_call(
+        pal["trace"], pad(sq), pad(sr), 2 * QT, True, safe=True)
+    rec, qs, rs = gact.traceback(port["trace"], torch.from_numpy(sq),
+                                 torch.from_numpy(sr), 2 * QT)
+    np.testing.assert_array_equal(rec.numpy(), np.asarray(rec_j)[:, :B])
+    np.testing.assert_array_equal(qs.numpy(), np.asarray(qs_j)[:B])
+    np.testing.assert_array_equal(rs.numpy(), np.asarray(rs_j)[:B])
+    return port
+
+
+@pytest.mark.parametrize("name", list(GENERIC))
+def test_generic_max_cell_128(name):
+    """The filter's geometry: 128x128, max-cell mode."""
+    rng = np.random.default_rng(21)
+    q, r, ql, rl, _ = _make_batch(rng, 8, 128, 128)
+    port = _assert_generic_tiles(name, q, r, ql, rl, np.zeros(8, bool))
+    assert int(port["score"].max()) > 0
+
+
+@pytest.mark.parametrize("name", list(GENERIC))
+def test_generic_start_to_end_384(name):
+    """The extender's geometry: 384x384, start-to-end, with trace."""
+    rng = np.random.default_rng(22)
+    q, r, ql, rl, _ = _make_batch(rng, 4, 384, 384)
+    ql[0], rl[0] = 384, 384
+    _assert_generic_tiles(name, q, r, ql, rl, np.ones(4, bool), lax=False)
+
+
+@pytest.mark.parametrize("name", ["generic", "mixed"])
+def test_generic_large_tile_matches_strip_kernel(name):
+    """QT > 512 goes through darwin_tpu's strip kernel, whose generic
+    branch carries the cross-lane term across strips
+    (gact_pallas.py:417-430); reduced to 600 x 32."""
+    rng = np.random.default_rng(23)
+    B, QT, RT = 8, 600, 32
+    q, r, ql, rl, _ = _make_batch(rng, B, QT, RT)
+    ql = np.maximum(ql, 520).astype(np.int32)       # reach the 2nd strip
+    _assert_generic_tiles(name, q, r, ql, rl, np.ones(B, bool),
+                          all_start_end=True, lax=False)
+
+
+@pytest.mark.parametrize("name", list(GENERIC) + list(PREFIX))
+def test_generic_twin_is_the_coupled_recurrence(name):
+    """The twin's closed form (two prefix scans and the shared cross-lane
+    term) against the recurrence written out cell by cell in numpy, as
+    the CUDA kernel walks it, for scorings of both domains: H and the
+    whole trace byte.  Tile 0 holds a 30-row insertion and tile 1 a
+    30-column deletion, so long gaps and gaps opened after gaps occur."""
+    _, params = _scoring(name)
+    rng = np.random.default_rng(24)
+    B, QT, RT = 3, 72, 64
+    q, r, ql, rl, _ = _make_batch(rng, B, QT, RT)
+    ql[:], rl[:] = QT, RT
+    q[0, :20], q[0, 50:72] = r[0, :20], r[0, 20:42]
+    q[1, :20], q[1, 20:54] = r[1, :20], r[1, 30:64]
+    port = _port(q, r, ql, rl, np.ones(B, bool), params=params)
+    sub = np.array(params.sub)
+    go, ge = params.gap_open, params.gap_extend
+    goL, geL = params.long_gap_open, params.long_gap_extend
+    for b in range(B):
+        H = np.zeros(QT, np.int64)
+        E = np.full(QT, go, np.int64)
+        EL = np.full(QT, goL, np.int64)
+        eb = np.full(QT, gact.E_OPEN8 | gact.EL_OPEN8)
+        for c in range(RT):
+            hup, f_up, fl_up = 0, gact.NEG_INF, gact.NEG_INF
+            raw = gact.F_OPEN8 | gact.FL_OPEN8
+            hdiag = 0
+            for i in range(QT):
+                dag = max(hdiag + sub[q[b, i], r[b, c]], 0)
+                e, el = E[i], EL[i]
+                hp = max(dag, e, el)
+                f = max(hup + go, f_up + ge)
+                fl = max(hup + goL, fl_up + geL)
+                h = max(hp, f, fl)
+                if h == dag:
+                    t = (gact.T8_DEL_L if h == el else gact.T8_INS_L
+                         if h == fl else gact.T8_ZERO if h == 0
+                         else gact.T8_DIAG)
+                else:
+                    t = (gact.T8_INS if h == f else gact.T8_INS_L
+                         if h == fl else gact.T8_DEL_L if h == el
+                         else gact.T8_DEL)
+                assert int(port["trace"][b, c, i]) == t + eb[i] + raw, \
+                    (b, c, i)
+                raw = ((gact.F_OPEN8 if h + go > f + ge else 0)
+                       | (gact.FL_OPEN8 if h + goL > fl + geL else 0))
+                eb[i] = ((gact.E_OPEN8 if h + go > e + ge else 0)
+                         | (gact.EL_OPEN8 if h + goL > el + geL else 0))
+                E[i] = max(h + go, e + ge)
+                EL[i] = max(h + goL, el + geL)
+                hdiag, H[i] = H[i], h
+                hup, f_up, fl_up = h, f, fl
+        assert int(port["score"][b]) == H[QT - 1]

@@ -2,7 +2,8 @@
 same SAM bytes and the same 7-line counter block as
 darwin_tpu.pipeline.align.run, on a 200 kb two-chromosome genome with an
 N run, reads on both strands from 800 bp to 5 kb, and one read across a
-1.2 kb deletion (large-tile escalation); plus the CLI."""
+1.2 kb deletion (large-tile escalation); plus the CLI, and the same run
+with a generic-scoring params.cfg (gap opens cheaper than gap extends)."""
 
 import io
 
@@ -10,19 +11,25 @@ import numpy as np
 import pytest
 import torch
 
-from darwin_tpu.config import Config
-from darwin_tpu.genome import GenomeStore
-from darwin_tpu.utils.simulate import simulate_reads, write_fasta
+from darwin_tpu.config import Config as JConfig, load_config as jload_config
 from darwin_tpu_torch import cli
+from darwin_tpu_torch.config import Config
+from darwin_tpu_torch.genome import GenomeStore
 from darwin_tpu_torch.pipeline.align import run
+from darwin_tpu_torch.utils.simulate import simulate_reads, write_fasta
 
 torch.set_num_threads(2)
 
 
-def _cfg():
-    cfg = Config()
+def _cfg(cls=Config):
+    cfg = cls()
     cfg.seed_size = 10              # small-genome-friendly k (README)
     return cfg
+
+
+GENERIC_CFG = ("[GACT_scoring]\ngap_open = -1\ngap_extend = -3\n"
+               "long_gap_open = -2\nlong_gap_extend = -6\n"
+               "[DSOFT_params]\nseed_size = 10\n")
 
 
 def _block(err: str):
@@ -54,8 +61,8 @@ def world(tmp_path_factory):
 
     from darwin_tpu.pipeline.align import run as jax_run
     out, err = io.StringIO(), io.StringIO()
-    jax_run(str(tmp / "ref.fa"), str(tmp / "reads.fa"), False, cfg=_cfg(),
-            out=out, err=err)
+    jax_run(str(tmp / "ref.fa"), str(tmp / "reads.fa"), False,
+            cfg=_cfg(JConfig), out=out, err=err)
     return tmp, out.getvalue(), _block(err.getvalue())
 
 
@@ -84,10 +91,34 @@ def test_cli_matches_darwin_tpu(world, capsys, monkeypatch):
     assert _block(got.err) == block
 
 
+def test_generic_scoring_cli_matches_darwin_tpu(world, capsys, monkeypatch):
+    """A legal params.cfg whose gap opens are cheaper than its gap extends
+    on both lanes: the DP takes the coupled recurrence, and SAM and the
+    counter block still equal darwin_tpu's."""
+    from darwin_tpu.pipeline.align import run as jax_run
+    tmp, sam_default, _ = world
+    monkeypatch.chdir(tmp)
+    (tmp / "params.cfg").write_text(GENERIC_CFG)
+    try:
+        jcfg = jload_config("params.cfg")
+        assert jcfg.gap_open > jcfg.gap_extend
+        out, err = io.StringIO(), io.StringIO()
+        jax_run("ref.fa", "reads.fa", False, cfg=jcfg, out=out, err=err)
+        assert cli.main(["ref.fa", "reads.fa", "0", "--device=cpu"]) == 0
+    finally:
+        (tmp / "params.cfg").unlink()
+    got = capsys.readouterr()
+    assert sum(1 for ln in got.out.splitlines()
+               if not ln.startswith("@")) >= 10
+    assert got.out == out.getvalue()
+    assert got.out != sam_default            # the scoring changes CIGARs
+    assert _block(got.err) == _block(err.getvalue())
+
+
 def test_cli_refuses_what_it_cannot_do(world, capsys):
     tmp, _, _ = world
     ref, reads = str(tmp / "ref.fa"), str(tmp / "reads.fa")
-    assert cli.main([ref, reads, "1", "--device=cpu"]) == 2   # overlap
+    assert cli.main([ref, reads, "2", "--device=cpu"]) == 1   # 0 or 1 only
     assert cli.main([ref, reads]) == 1                        # usage
     assert cli.main([ref, reads, "0", "--bogus"]) == 1
     if not torch.cuda.is_available():
