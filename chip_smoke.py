@@ -12,8 +12,15 @@ Phases (each prints its lines; any failure raises, so the exit is nonzero):
   2. build the CUDA kernels from the checkout's csrc/ with nvcc (sm_90a);
   3. every kernel against its plain PyTorch twin on the card, at the
      paths' tile geometries, with the default, a generic and a mixed
-     scoring, and the op-rate probe in its five modes: exact integer
-     equality; each kernel's time beside its bound;
+     scoring, at odd geometries with max-cell and start-to-end tiles mixed,
+     the walker also on random trace words and on runs longer than its
+     look-ahead and than max_tb, and the op-rate probe in its five modes:
+     exact integer equality; each kernel's time per call of its wrapper
+     (calls enqueued back to back between two events) and its device self
+     time under torch.profiler beside its bound, the DP's rows per lane and
+     warps per tile, its time on either side of the batch sizes where the
+     warps per tile change, the trace's share of its time, its compiled
+     instructions per cell;
   4. a small end-to-end run on cuda and on cpu, with the default and with
      the generic-scoring params.cfg: SAM and counters identical;
   5. reference-guided mode at real size through the CLI: a synthetic
@@ -89,7 +96,8 @@ NOT_ALU = {"LDG", "STG", "LDS", "STS", "LDC", "ULDC", "LD", "ST", "LDL",
            "STL", "BRA", "BAR", "BSSY", "BSYNC", "EXIT", "NOP", "WARPSYNC",
            "CALL", "RET", "MOV", "UMOV", "S2R", "CS2R", "R2UR", "S2UR",
            "DEPBAR", "YIELD", "BMOV", "BREAK", "ERRBAR", "MEMBAR", "CCTL"}
-# integer ops per walker step, about, counted in csrc/gact_tb.cu's loop
+# integer ops per walker step, about, counted in the twin's loop
+# (ops/gact.traceback)
 TB_OPS_PER_STEP = 20
 
 
@@ -200,6 +208,28 @@ def _time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def _self_ms(jobs, reps):
+    """Mean device self time of kernels under torch.profiler, in one
+    trace (starting one costs about a second): ``jobs`` maps a label to
+    (fn, part of the kernel's name); each fn runs ``reps`` times.  The mean
+    is over the launches the profiler recorded (it can miss one).
+    _time_ms around the same calls reads more where the wrapper's host work
+    (checks, allocations, its other launches) outlasts the kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for fn, _ in jobs.values():
+            for _ in range(reps):
+                fn()
+        torch.cuda.synchronize()
+    out = {}
+    for label, (_, part) in jobs.items():
+        seen = [e for e in prof.key_averages() if part in e.key]
+        n = sum(e.count for e in seen)
+        check(n > 0, f"the profiler saw no kernel named {part}")
+        out[label] = sum(e.self_device_time_total for e in seen) / 1000 / n
+    return out
+
+
 def dp_ops_per_cell(start_end, with_trace):
     """Integer operations per cell that this tile mode needs."""
     return (DP_OPS_RECURRENCE + (0 if start_end else DP_OPS_MAX_CELL)
@@ -225,17 +255,31 @@ def phase_kernels(seed, kstats):
            f"the bounds use these): {dp_ops_per_cell(True, False)} "
            f"start-to-end, {dp_ops_per_cell(False, False)} max-cell, "
            f"{dp_ops_per_cell(True, True)} start-to-end with trace")
-    # what the compiler made of it, for the reader only
+    # what the compiler made of it, for the reader only: the start-to-end
+    # column loop of each instantiation with trace is the shortest loop
+    # that holds the three edge shuffles; two heights give the
+    # instructions per cell and per step
     sass = vpu_probe.sass_counts()
-    for fn, info in sorted(sass.items()):
-        m = re.search(r"gact_dp_kernelILi(\d+)E", fn)
-        if m and m.group(1) == "3":
-            alu = sum(n for o, n in info["loop"].items() if o not in NOT_ALU)
-            top = sorted(info["loop"].items(), key=lambda kv: -kv[1])[:10]
-            say(3, f"column loop of gact_dp_kernel<3> as compiled (3 cells, "
-                   f"with trace): {sum(info['loop'].values())} "
-                   f"instructions, {alu} of them arithmetic = {alu / 3:.1f} "
-                   f"per cell; " + ", ".join(f"{o} {n}" for o, n in top))
+    loops = {}
+    for fn, info in sass.items():
+        m = re.search(r"gact_dp_kernelILi(\d+)ELb1EE", fn)
+        spans = [lp for lp in info["loops"] if lp.get("SHFL") == 3]
+        if m and spans:
+            loops[int(m.group(1))] = min(spans, key=lambda lp: sum(
+                lp.values()))
+    check({6, 12} <= set(loops), f"no column loop found in the SASS of "
+          f"gact_dp_kernel<6 | 12, true>: {sorted(sass)}")
+
+    def n_alu(lp):
+        return sum(n for o, n in lp.items() if o not in NOT_ALU)
+    n6, n12 = sum(loops[6].values()), sum(loops[12].values())
+    a6, a12 = n_alu(loops[6]), n_alu(loops[12])
+    top = sorted(loops[12].items(), key=lambda kv: -kv[1])[:10]
+    say(3, f"column loop of gact_dp_kernel<S, trace> as compiled: {n12} "
+           f"instructions per step at S=12, {n6} at S=6 = "
+           f"{(n12 - n6) / 6:.1f} per cell + {2 * n6 - n12} per step; "
+           f"arithmetic {(a12 - a6) / 6:.1f} per cell + {2 * a6 - a12} per "
+           f"step; S=12: " + ", ".join(f"{o} {n}" for o, n in top))
     rng = np.random.default_rng(seed)
     # (name, qt, rt, B, start_end); (qt, rt) = (query, ref) tile sides —
     # the escalation tiles are 1984 ref x 960 query and 960 x 1984; B = 103
@@ -278,39 +322,78 @@ def phase_kernels(seed, kstats):
             diff = (k["trace"].int() - p["trace"].int()).abs() * valid
             err = max(err, int(diff.max()))
         check(err == 0, f"{kname} != plain at {geo}: max |diff| {err}")
-        reps = 20 if qt * rt * B <= 384 * 384 * 512 else 5
-        kms = _time_ms(kern, reps)
-        pms = _time_ms(plain, 1)
-        cells = B * qt * rt
-        n_bytes = B * (qt + rt + 4 + 4 + 1 + 12) + (cells if with_trace
-                                                    else 0)
-        bms, bby = bound(n_bytes, cells * dp_ops_per_cell(se, with_trace))
-        say(3, f"{kname} {geo}: exact; kernel {kms:.3f} ms "
-               f"({cells / kms / 1e6:.2f} GCUPS), plain {pms:.1f} ms, "
-               f"bound {bms:.4f} ms by {bby}")
         st = kstats[kname]
         st["max_abs_err"] = max(st.get("max_abs_err", 0), err)
-        if (qt, rt, B, se) == (384, 384, 512, True) and params is default:
+        main_row = (qt, rt, B, se) == (384, 384, 512, True) and \
+            params is default
+
+        def bare():
+            return gact_cuda.dp_tiles(*args, sev, params, False)
+
+        if with_trace:
+            max_tb = 768
+            sq = (args[2] - 1).contiguous()
+            sr = (args[3] - 1).contiguous()
+            # each walker on its own DP's trace
+            tr, ptrace = k["trace"], p["trace"]
+
+            def kern_tb():
+                return gact_cuda.traceback_tiles(tr, sq, sr, max_tb)
+
+            def plain_tb():
+                return gact.traceback(ptrace, sq, sr, max_tb)
+
+            kt = kern_tb()
+            pt = plain_tb()
+            torch.cuda.synchronize()
+            err = max(int((a.long() - b.long()).abs().max())
+                      for a, b in zip(kt, pt))
+            check(err == 0, f"gact_tb != plain at {geo}: max |diff| {err}")
+            kstats["gact_tb"]["max_abs_err"] = max(
+                kstats["gact_tb"].get("max_abs_err", 0), err)
+
+        reps = 20 if qt * rt * B <= 384 * 384 * 512 else 5
+        S, W = gact_cuda.dp_plan(B, qt)
+        # the kernels' self time at the default scoring's rows: the other
+        # scorings run the same kernels
+        self_ms = {}
+        if params is default:
+            flag = "true" if with_trace else "false"
+            jobs = {"dp": (kern, f"gact_dp_kernel<{S}, {flag}>")}
+            if main_row:
+                jobs["bare"] = (bare, f"gact_dp_kernel<{S}, false>")
+            if with_trace:
+                jobs["tb"] = (kern_tb, "gact_tb_kernel")
+            self_ms = {x: f", {v:.4f} ms device self time"
+                       for x, v in _self_ms(jobs, reps).items()}
+        kms = _time_ms(kern, reps)
+        pms = _time_ms(plain, 1)
+        # the work these inputs need: the cells of each tile's valid region
+        # (half of the tiles are ragged); GCUPS counts whole tiles, as the
+        # main path's does
+        cells = B * qt * rt
+        need = int((ql.astype(np.int64) * rl).sum())
+        n_bytes = B * (qt + rt + 4 + 4 + 1 + 12) + (need if with_trace
+                                                    else 0)
+        bms, bby = bound(n_bytes, need * dp_ops_per_cell(se, with_trace))
+        say(3, f"{kname} {geo}: exact; S={S} rows per lane, W={W} warps "
+               f"per tile; kernel {kms:.3f} ms per call of {reps} enqueued "
+               f"back to back ({cells / kms / 1e6:.2f} GCUPS of whole "
+               f"tiles, {need / cells:.3f} of the cells valid)"
+               f"{self_ms.get('dp', '')}, plain {pms:.1f} ms, bound "
+               f"{bms:.4f} ms by {bby}")
+        if main_row:
             st.update(ms=kms, plain_ms=pms, bound_ms=bms, bound_by=bby)
+            # the trace's share of the time: the same tiles without it
+            nms = _time_ms(bare, reps)
+            nb, _ = bound(B * (qt + rt + 21),
+                          need * dp_ops_per_cell(se, False))
+            say(3, f"{kname} {geo}, the same tiles without trace: kernel "
+                   f"{nms:.3f} ms per call{self_ms['bare']}, bound {nb:.4f} "
+                   f"ms: the trace is {1 - nms / kms:.3f} of the time per "
+                   f"call")
         if not with_trace:
             continue
-        max_tb = 768
-        sq = (args[2] - 1).contiguous()
-        sr = (args[3] - 1).contiguous()
-        tr = k["trace"]
-
-        def kern_tb():
-            return gact_cuda.traceback_tiles(tr, sq, sr, max_tb)
-
-        def plain_tb():
-            return gact.traceback(tr, sq, sr, max_tb)
-
-        kt = kern_tb()
-        pt = plain_tb()
-        torch.cuda.synchronize()
-        err = max(int((a.long() - b.long()).abs().max())
-                  for a, b in zip(kt, pt))
-        check(err == 0, f"gact_tb != plain at {geo}: max |diff| {err}")
         kms = _time_ms(kern_tb, reps)
         pms = _time_ms(plain_tb, 1)
         # what this walk needs: one trace byte per step, the zeroed record
@@ -321,13 +404,98 @@ def phase_kernels(seed, kstats):
         bms, bby = bound(steps + rec.numel() * 4 + B * 16,
                          steps * TB_OPS_PER_STEP)
         say(3, f"gact_tb   {geo} max_tb={max_tb}: exact; kernel "
-               f"{kms:.3f} ms, plain {pms:.1f} ms, bound {bms:.5f} ms by "
+               f"{kms:.4f} ms per call of {reps} enqueued back to back "
+               f"(its zeroed records included){self_ms.get('tb', '')}, "
+               f"plain {pms:.1f} ms, bound {bms:.5f} ms by "
                f"{bby}; {steps} steps in all, at most {longest} "
                f"(q + r steps) on one tile's serial chain")
-        st = kstats["gact_tb"]
-        st["max_abs_err"] = max(st.get("max_abs_err", 0), err)
-        if (qt, rt, B) == (384, 384, 512) and params is default:
-            st.update(ms=kms, plain_ms=pms, bound_ms=bms, bound_by=bby)
+        if main_row:
+            kstats["gact_tb"].update(ms=kms, plain_ms=pms, bound_ms=bms,
+                                     bound_by=bby)
+
+    # the rule that picks the warps per tile from the batch size, read on
+    # either side of the sizes where it switches: full 384x384 tiles with
+    # trace (the kernel outlasts its wrapper's host work here)
+    q, r, ql, rl = _tiles(rng, 528, 384, 384, full_frac=1.0)
+    full = [torch.from_numpy(x).to(dev) for x in (q, r, ql, rl)]
+    sev = torch.ones(528, dtype=torch.bool, device=dev)
+    for B in (132, 263, 264, 527, 528):
+        part = [x[:B].contiguous() for x in full]
+
+        def kern():
+            return gact_cuda.dp_tiles(*part, sev[:B], default, True)
+        S, W = gact_cuda.dp_plan(B, 384)
+        kms = _time_ms(kern, 20)
+        say(3, f"gact_dp 384x384 full tiles with trace, B={B}: S={S}, "
+               f"W={W}; kernel {kms:.4f} ms per call of 20 enqueued back "
+               f"to back = {kms / B * 1e3:.3f} us per tile")
+
+    # exactness only, at geometries off the main path: one row and column,
+    # a tile narrower than a warp and longer than a strip of columns, sides
+    # that are no multiple of 4, the tallest tile; max-cell and start-to-end
+    # tiles mixed in one batch, with trace
+    for qt, rt, B in ((1, 1, 5), (33, 1000, 40), (385, 383, 70),
+                      (2048, 64, 9), (128, 128, 300)):
+        q, r, ql, rl = _tiles(rng, B, qt, rt)
+        args = [torch.from_numpy(x).to(dev) for x in (q, r, ql, rl)]
+        sev = torch.from_numpy(np.arange(B) % 3 != 0).to(dev)
+        for params in (default, generic):
+            k = gact_cuda.dp_tiles(*args, sev, params, True)
+            p = gact.batch_align(*args, sev, params, with_trace=True)
+            torch.cuda.synchronize()
+            for key in ("score", "query_max_pos", "ref_max_pos"):
+                check(torch.equal(k[key], p[key]),
+                      f"gact_dp != plain at {rt}x{qt}: {key}")
+            valid = ((torch.arange(rt, device=dev)[None, :, None]
+                      < args[3][:, None, None])
+                     & (torch.arange(qt, device=dev)[None, None, :]
+                        < args[2][:, None, None]))
+            check(bool(((k["trace"] == p["trace"]) | ~valid).all()),
+                  f"gact_dp != plain at {rt}x{qt}: trace")
+            sq = torch.where(sev, args[2] - 1, k["query_max_pos"])
+            sr = torch.where(sev, args[3] - 1, k["ref_max_pos"])
+            # each walker on its own DP's trace; a max-cell tile with an
+            # empty side starts at (0, 0), where both traces hold ZERO
+            kt = gact_cuda.traceback_tiles(k["trace"], sq, sr, 2 * qt)
+            pt = gact.traceback(p["trace"], sq, sr, 2 * qt)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(kt, pt)),
+                  f"gact_tb != plain at {rt}x{qt}")
+        S, W = gact_cuda.dp_plan(B, qt)
+        say(3, f"gact_dp, gact_tb {rt}x{qt} (ref x query) B={B}, max-cell "
+               f"and start-to-end mixed, default and generic gaps: exact; "
+               f"S={S}, W={W}")
+
+    # the walker on words no DP made: any T field in 0-5 under any open
+    # bits, starts on the tile's edges and outside it; then runs longer
+    # than the 32 words of one look-ahead and longer than max_tb
+    B, side = 4096, 64
+    t = np.where(rng.random((B, side, side)) < 0.6, gact.T8_DIAG,
+                 rng.integers(0, 6, (B, side, side)))
+    words = (t | (rng.integers(0, 16, t.shape) << 3)).astype(np.uint8)
+    sq = rng.integers(-1, side + 2, B).astype(np.int32)
+    sr = rng.integers(-1, side + 2, B).astype(np.int32)
+    long_runs = np.full((6, 200, 200), gact.T8_DIAG, np.uint8)
+    long_runs[1] = gact.T8_DEL
+    long_runs[2] = gact.T8_INS_L
+    long_runs[3] = gact.T8_DEL_L
+    long_runs[3, 199 - 63, 199] |= gact.EL_OPEN8
+    long_runs[4] = gact.T8_INS
+    long_runs[4, 199, 199 - 64] |= gact.F_OPEN8
+    long_runs[5, 100:] = gact.T8_DEL | gact.E_OPEN8
+    ends = np.full(6, 199, np.int32)
+    for what, tr, a, b, caps in (
+            ("random trace words, B=4096 of 64x64", words, sq, sr, (7, 128)),
+            ("runs of 200 cells, B=6 of 200x200", long_runs, ends, ends,
+             (1, 33, 100, 400))):
+        trd, a, b = (torch.from_numpy(x).to(dev) for x in (tr, a, b))
+        for max_tb in caps:
+            kt = gact_cuda.traceback_tiles(trd, a, b, max_tb)
+            pt = gact.traceback(trd, a, b, max_tb)
+            torch.cuda.synchronize()
+            check(all(torch.equal(x, y) for x, y in zip(kt, pt)),
+                  f"gact_tb != plain on {what}, max_tb={max_tb}")
+        say(3, f"gact_tb   {what}, max_tb in {caps}: exact")
 
     # two insert runs in one column: only exact gap-lane ties make these;
     # darwin_tpu's fast sweep (_tb_kernel) spills here and reruns the

@@ -20,6 +20,7 @@ import torch
 
 from darwin_tpu_torch.genome import GenomeStore, Read
 from darwin_tpu_torch.index.minimizers import scan_sequence
+from darwin_tpu_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass
@@ -58,14 +59,14 @@ class SeedTable:
                           np.int64))
 
     @classmethod
-    def from_numpy(cls, sorted_hashes, positions, meta, device="cpu"
+    def from_numpy(cls, sorted_hashes, positions, meta, device="cuda"
                    ) -> "SeedTable":
-        """A table from host arrays in darwin_tpu's layout (uint32 sorted
-        hashes and positions; meta = (k, w, ref_size, kmer_max_occurence))
-        — carries a darwin_tpu table across so both packages run on the
-        same index."""
+        """A table on ``device`` from host arrays in darwin_tpu's layout
+        (uint32 sorted hashes and positions; meta = (k, w, ref_size,
+        kmer_max_occurence)) — carries a darwin_tpu table across so both
+        packages run on the same index."""
         k, w, ref_size, maxocc = (int(x) for x in np.asarray(meta))
-        dev = torch.device(device)
+        dev = resolve_device(device)
 
         def up(a):
             return torch.from_numpy(np.asarray(a).astype(np.int64)).to(dev)
@@ -74,8 +75,9 @@ class SeedTable:
                    kmer_max_occurence=maxocc)
 
     @classmethod
-    def load(cls, path: str, device="cpu") -> "SeedTable":
-        """Read a pairs-layout .npz written by either package's save()."""
+    def load(cls, path: str, device="cuda") -> "SeedTable":
+        """Read a pairs-layout .npz written by either package's save() onto
+        ``device``."""
         with np.load(path) as z:
             if "hashes" not in z:
                 raise NotImplementedError(
@@ -85,15 +87,15 @@ class SeedTable:
                                   device)
 
 
-def build_seed_table(store: GenomeStore, cfg, device="cpu") -> SeedTable:
-    """Per-chromosome minimizer scans on the device (the emission state
+def build_seed_table(store: GenomeStore, cfg, device="cuda") -> SeedTable:
+    """Per-chromosome minimizer scans on ``device`` (the emission state
     resets per chromosome), positions made absolute (local + chromosome
     start), then one sort of the int64 key hash << 32 | pos — keys are
     unique, so this is darwin_tpu's (hash, pos) order exactly."""
     k, w = cfg.seed_size, cfg.minimizer_window
     if not 3 < k <= 15:
         raise ValueError(f"seed_size {k} outside the reference's (3, 15]")
-    dev = torch.device(device)
+    dev = resolve_device(device)
     codes2 = store.codes2
     keys = []
     for c in store.chromosomes:
@@ -109,7 +111,7 @@ def build_seed_table(store: GenomeStore, cfg, device="cpu") -> SeedTable:
                      kmer_max_occurence=cfg.kmer_max_occurence(store.size))
 
 
-def build_read_seed_table(reads: list[Read], cfg, device="cpu"
+def build_read_seed_table(reads: list[Read], cfg, device="cuda"
                           ) -> tuple[SeedTable, GenomeStore]:
     """Overlap (de-novo) mode: index the reads themselves
     (darwin_tpu/index/seed_table.py:330-344).  The reference runs the same

@@ -66,7 +66,8 @@ def _run(cmd) -> str:
     return proc.stderr
 
 
-def _build(path: str) -> None:
+def _build(path: str) -> dict:
+    """Compile and link; returns nvcc's seconds and its stderr."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = nvcc_path()
     tmp = f"{path}.{os.getpid()}.tmp"
@@ -83,7 +84,7 @@ def _build(path: str) -> None:
         for obj in objs:
             if os.path.exists(obj):
                 os.remove(obj)
-    BUILD_INFO.update(seconds=time.perf_counter() - t0, log="".join(logs))
+    return {"seconds": time.perf_counter() - t0, "log": "".join(logs)}
 
 
 def _bind(lib) -> None:
@@ -91,6 +92,8 @@ def _bind(lib) -> None:
     lib.gact_dp.argtypes = [p, p, p, p, p, i, i, i, p, i, i, i, i,
                             p, p, p, p, p]
     lib.gact_dp.restype = i
+    lib.gact_dp_plan.argtypes = [i, i, p, p]
+    lib.gact_dp_plan.restype = i
     lib.gact_tb.argtypes = [p, p, p, i, i, i, i, p, p, p, p]
     lib.gact_tb.restype = i
     lib.int_probe.argtypes = [p, p, i, i, p]
@@ -107,8 +110,9 @@ def load():
         BUILD_INFO.clear()
         BUILD_INFO.update(path=path, seconds=0.0, log="")
         if not os.path.exists(path):
-            _build(path)
+            BUILD_INFO.update(_build(path))
         lib = ctypes.CDLL(path)
         _bind(lib)
         _lib = lib
         return _lib
+

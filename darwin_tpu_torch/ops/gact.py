@@ -83,11 +83,15 @@ def batch_align(qcodes, rcodes, qlens, rlens, start_end, params: GactParams,
     """Plain twin of the ``gact_dp`` kernel: align a batch of tiles.
 
     qcodes (B, QT) / rcodes (B, RT) uint8 5-letter codes; qlens/rlens (B,)
-    int32 actual sizes (1..QT / 1..RT); start_end (B,) bool — score at the
+    int32 actual sizes (0..QT / 0..RT); start_end (B,) bool — score at the
     end cell (qlen-1, rlen-1) instead of max-cell mode.
 
     Returns a dict of (B,) int32 ``score``, ``query_max_pos``,
-    ``ref_max_pos`` and, with_trace, ``trace`` (B, RT, QT) uint8.
+    ``ref_max_pos`` and, with_trace, ``trace`` (B, RT, QT) uint8.  Trace
+    bytes at q >= qlen or r >= rlen are unspecified (here: computed from the
+    codes beyond the lengths; the kernel leaves them unwritten), but for
+    word (0, 0) of a tile with an empty side, which is ZERO: max-cell mode
+    reports (0, 0) for such a tile, and a walk from there stops at once.
     """
     dev = qcodes.device
     i32 = torch.int32
@@ -187,6 +191,8 @@ def batch_align(qcodes, rcodes, qlens, rlens, start_end, params: GactParams,
            "query_max_pos": torch.where(start_end, qlens - 1, best_q),
            "ref_max_pos": torch.where(start_end, rlens - 1, best_r)}
     if with_trace:
+        if RT and QT:
+            trace[(qlens <= 0) | (rlens <= 0), 0, 0] = T8_ZERO
         out["trace"] = trace
     return out
 

@@ -66,10 +66,15 @@ def count_launch(name, err, shape):
 
 def dp_tiles(qcodes, rcodes, qlens, rlens, start_end, params, with_trace):
     """Batched tile DP.  qcodes (B, QT) / rcodes (B, RT) uint8 codes 0-4,
-    qlens / rlens (B,) int32 in [1, QT] / [1, RT], start_end (B,) bool.
+    qlens / rlens (B,) int32 in [0, QT] / [0, RT], start_end (B,) bool.
     Returns {score, query_max_pos, ref_max_pos} (B,) int32 and, with_trace,
     ``trace`` (B, RT, QT) uint8 — the tile-contiguous layout
-    (darwin_tpu's Pallas kernel emits (RT, QT, B))."""
+    (darwin_tpu's Pallas kernel emits (RT, QT, B)).  Its bytes at q >= qlen
+    or r >= rlen are unspecified (the card does not write them, the twin
+    computes them from the codes beyond the lengths): a walk from any cell
+    inside moves up and left and never reads them.  A tile with an empty
+    side reports (0, 0) in max-cell mode and has word (0, 0) ZERO on either
+    device, so a walk from the reported cell stops at once."""
     dev = qcodes.device
     check_tensor("qcodes", qcodes, torch.uint8, 2, dev)
     check_tensor("rcodes", rcodes, torch.uint8, 2, dev)
@@ -111,6 +116,17 @@ def dp_tiles(qcodes, rcodes, qlens, rlens, start_end, params, with_trace):
     if with_trace:
         out["trace"] = trace
     return out
+
+
+def dp_plan(B: int, QT: int):
+    """(S, W) that ``dp_tiles`` launches with for B tiles of QT query rows
+    on the card: S rows per lane, W warps per tile (csrc/gact_dp.cu)."""
+    s, w = ctypes.c_int(), ctypes.c_int()
+    err = build.load().gact_dp_plan(B, QT, ctypes.byref(s), ctypes.byref(w))
+    if err != 0:
+        raise ValueError(f"gact_dp_plan: B={B}, QT={QT} is outside the "
+                         f"limits its source states (csrc/gact.h)")
+    return s.value, w.value
 
 
 def traceback_tiles(trace, start_q, start_r, max_tb: int):

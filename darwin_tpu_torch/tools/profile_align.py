@@ -17,7 +17,13 @@ seconds of each stage.  Stages are timed by wrapping the port's functions
 from outside (see ``STAGES``); nothing in the pipeline is instrumented.
 They nest (``ext_native_decode`` is inside ``ext_decode_wave``, which is
 inside ``extend_total``) and a stage that waits on the card includes
-that wait.
+that wait.  ``gc_collections`` is the time Python's cyclic collector took
+during the run, inside whichever stage it fell (a full collection beside
+a run's data takes tens of milliseconds; one that falls between the two
+events of an extension dispatch is counted in its device time).  ``ext.
+device ms`` is ``ops.dispatch.EXT_STATS``'s: per extension dispatch, the
+time between an event recorded before the DP launch and one after the
+traceback launch.
 
 The last run is under ``torch.profiler``: it prints the device self time
 of each kernel, their sum, and the card's busy share — the union of the
@@ -32,6 +38,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import gc
 import io
 import json
 import os
@@ -46,6 +53,7 @@ import torch
 
 from darwin_tpu_torch import native
 from darwin_tpu_torch.config import Config, load_config
+from darwin_tpu_torch.ops import dispatch
 from darwin_tpu_torch.pipeline import align, extend, printer
 from darwin_tpu_torch.seeding import seeder
 
@@ -65,6 +73,7 @@ STAGES = (
 )
 # the resolve() closures ext_enqueue returns: fetch + record expansion
 RESOLVE_STAGE = "ext_resolve_fetch_expand"
+GC_STAGE = "gc_collections"
 RUNS = 3          # cold, warm, and warm under the profiler
 
 
@@ -74,6 +83,14 @@ def stage_timers():
     the block; yields {stage: seconds}, filled as the block runs."""
     acc = {name: 0.0 for name, _, _ in STAGES}
     acc[RESOLVE_STAGE] = 0.0
+    acc[GC_STAGE] = 0.0
+    began = [0.0]
+
+    def on_gc(phase, info):
+        if phase == "start":
+            began[0] = time.perf_counter()
+        else:
+            acc[GC_STAGE] += time.perf_counter() - began[0]
 
     def timed(name, fn):
         @functools.wraps(fn)
@@ -89,6 +106,7 @@ def stage_timers():
         return wrapper
 
     saved = []
+    gc.callbacks.append(on_gc)
     try:
         for name, owner, attr in STAGES:
             fn = getattr(owner, attr)
@@ -96,6 +114,7 @@ def stage_timers():
             setattr(owner, attr, timed(name, fn))
         yield acc
     finally:
+        gc.callbacks.remove(on_gc)
         for owner, attr, fn in reversed(saved):
             setattr(owner, attr, fn)
 
@@ -156,6 +175,7 @@ def main(argv=None) -> int:
         for i in range(RUNS):
             last = i == RUNS - 1
             out, err = io.StringIO(), io.StringIO()
+            dispatch.reset_ext_stats()
             with stage_timers() as acc:
                 if last:
                     with profile(activities=[ProfilerActivity.CPU,
@@ -170,11 +190,12 @@ def main(argv=None) -> int:
                               err=err, device="cuda")
             align_s = _align_s(err.getvalue())
             row = {"align_s": align_s, "reads_per_s": len(truth) / align_s,
+                   "ext_device_ms": dispatch.EXT_STATS["device_ms"],
                    "stages_s": dict(sorted(acc.items(),
                                            key=lambda kv: -kv[1]))}
             print(f"run {i}{' (profiled)' if last else ''}: align "
-                  f"{align_s:.3f} s -> {row['reads_per_s']:.1f} reads/s",
-                  flush=True)
+                  f"{align_s:.3f} s -> {row['reads_per_s']:.1f} reads/s, "
+                  f"ext. device ms {row['ext_device_ms']:.1f}", flush=True)
             print("   stages (host s): " + ", ".join(
                 f"{k}={v:.3f}" for k, v in row["stages_s"].items()),
                 flush=True)

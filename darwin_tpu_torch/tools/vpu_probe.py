@@ -145,9 +145,10 @@ def probe(modes=MODES, programs: int = 8192, samples: int = 5,
 def sass_counts() -> dict:
     """Instruction counts per kernel of the built library, from
     ``cuobjdump -sass``: {kernel: {"total": n, "loop": {opcode: n},
-    "all": {opcode: n}}} where "loop" is the span of the longest backward
-    branch (the tile DP's column loop; the probe's chains are unrolled and
-    have none worth the name).  Needs the CUDA toolkit."""
+    "all": {opcode: n}, "loops": [{opcode: n}, ...]}} where "loops" holds
+    the span of every backward branch and "loop" the longest of them (the
+    probe's chains are unrolled and have none worth the name).  Needs the
+    CUDA toolkit."""
     build.load()                      # builds the library if needed
     tool = shutil.which("cuobjdump") or os.path.join(
         os.path.dirname(build.nvcc_path()), "cuobjdump")
@@ -156,24 +157,28 @@ def sass_counts() -> dict:
     out = {}
     name, ins = None, []
 
+    def count(span):
+        ops = {}
+        for _, op, _ in span:
+            ops[op] = ops.get(op, 0) + 1
+        return ops
+
     def flush():
         if name is None or not ins:
             return
-        every = {}
-        for _, op, _ in ins:
-            every[op] = every.get(op, 0) + 1
+        every = count(ins)
         best = (0, 0)
+        loops = []
         for idx, (addr, op, arg) in enumerate(ins):
             m = re.search(r"0x([0-9a-f]+)", arg) if op == "BRA" else None
             if m and int(m.group(1), 16) < addr:
                 tgt = int(m.group(1), 16)
                 lo = next(i for i, x in enumerate(ins) if x[0] >= tgt)
+                loops.append(count(ins[lo:idx + 1]))
                 if idx - lo > best[1] - best[0]:
                     best = (lo, idx + 1)
-        loop = {}
-        for _, op, _ in ins[best[0]:best[1]]:
-            loop[op] = loop.get(op, 0) + 1
-        out[name] = {"total": len(ins), "all": every, "loop": loop}
+        out[name] = {"total": len(ins), "all": every,
+                     "loop": count(ins[best[0]:best[1]]), "loops": loops}
 
     for ln in text.splitlines():
         m = re.match(r"\s*Function : (\S+)", ln)

@@ -37,7 +37,7 @@ def world():
     meta = [jt.kmer_size, jt.minimizer_window, jt.ref_size,
             jt.kmer_max_occurence]
     table = SeedTable.from_numpy(np.asarray(jt.sorted_hashes),
-                                 np.asarray(jt.positions), meta)
+                                 np.asarray(jt.positions), meta, "cpu")
     reads = []
     for i, p in enumerate(range(1000, len(bases) - 3000,
                                 len(bases) // 12)):

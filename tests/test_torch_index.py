@@ -73,11 +73,11 @@ def test_tables_cross_between_packages(tmp_path):
     jt = jst.build_seed_table(store, cfg, method="host")
     path = str(tmp_path / "index.npz")
     jt.save(path)
-    loaded = seed_table.SeedTable.load(path)
+    loaded = seed_table.SeedTable.load(path, "cpu")
     meta = np.array([jt.kmer_size, jt.minimizer_window, jt.ref_size,
                      jt.kmer_max_occurence])
     carried = seed_table.SeedTable.from_numpy(
-        np.asarray(jt.sorted_hashes), np.asarray(jt.positions), meta)
+        np.asarray(jt.sorted_hashes), np.asarray(jt.positions), meta, "cpu")
     built = seed_table.build_seed_table(store, cfg, "cpu")
     for t in (loaded, carried):
         assert torch.equal(t.sorted_hashes, built.sorted_hashes)
@@ -91,3 +91,54 @@ def test_tables_cross_between_packages(tmp_path):
     np.testing.assert_array_equal(np.asarray(jt2.positions),
                                   np.asarray(jt.positions))
     assert jt2.ref_size == jt.ref_size
+
+
+def _call_without_device(name, tmp_path):
+    store = _store(np.random.default_rng(5))
+    cfg = Config()
+    cfg.seed_size = 12
+    if name == "build_seed_table":
+        return seed_table.build_seed_table, (store, cfg)
+    if name == "build_read_seed_table":
+        from darwin_tpu_torch.genome import reads_from_numpy
+        acgt = np.frombuffer(b"ACGT", np.uint8)
+        rng = np.random.default_rng(6)
+        reads = reads_from_numpy(
+            ["r0", "r1"], [acgt[rng.integers(0, 4, 700)] for _ in range(2)])
+        return seed_table.build_read_seed_table, (reads, cfg)
+    built = seed_table.build_seed_table(store, cfg, "cpu")
+    if name == "from_numpy":
+        meta = [built.kmer_size, built.minimizer_window, built.ref_size,
+                built.kmer_max_occurence]
+        return seed_table.SeedTable.from_numpy, (
+            built.sorted_hashes.numpy(), built.positions.numpy(), meta)
+    path = str(tmp_path / "t.npz")
+    built.save(path)
+    return seed_table.SeedTable.load, (path,)
+
+
+@pytest.mark.parametrize("name", ["from_numpy", "load", "build_seed_table",
+                                  "build_read_seed_table"])
+def test_index_entry_points_default_to_the_card(name, tmp_path):
+    """Each entry point runs on the card unless asked for the CPU: the
+    default is ``cuda``, a host without a card raises, and ``device="cpu"``
+    gives the table a direct CPU build gives."""
+    import inspect
+    fn, args = _call_without_device(name, tmp_path)
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            fn(*args)
+    got = fn(*args, device="cpu")
+    table = got[0] if isinstance(got, tuple) else got
+    assert table.positions.device.type == "cpu"
+    assert table.sorted_hashes.device.type == "cpu"
+    assert table.num_seeds > 0
+    assert bool((table.sorted_hashes[1:] >= table.sorted_hashes[:-1]).all())
+    if name in ("from_numpy", "load"):
+        store = _store(np.random.default_rng(5))
+        cfg = Config()
+        cfg.seed_size = 12
+        built = seed_table.build_seed_table(store, cfg, "cpu")
+        assert torch.equal(table.positions, built.positions)
+        assert torch.equal(table.sorted_hashes, built.sorted_hashes)
