@@ -14,28 +14,38 @@ Phases (each prints its lines; any failure raises, so the exit is nonzero):
      paths' tile geometries, with the default, a generic and a mixed
      scoring, at odd geometries with max-cell and start-to-end tiles mixed,
      the walker also on random trace words and on runs longer than its
-     look-ahead and than max_tb, and the op-rate probe in its five modes:
-     exact integer equality; each kernel's time per call of its wrapper
-     (calls enqueued back to back between two events) and its device self
-     time under torch.profiler beside its bound, the DP's rows per lane and
-     warps per tile, its time on either side of the batch sizes where the
-     warps per tile change, the trace's share of its time, its compiled
-     instructions per cell;
-  4. a small end-to-end run on cuda and on cpu, with the default and with
-     the generic-scoring params.cfg: SAM and counters identical;
-  5. reference-guided mode at real size through the CLI: a synthetic
-     genome of E. coli K-12 MG1655's length, 512 simulated 10 kb reads plus
-     16 with a planted 1.5 kb deletion; loci checked against the
-     simulation;
+     look-ahead and than max_tb, the next-tile kernel on the walker's
+     records and on synthetic ones, and the op-rate probe in its five
+     modes: exact integer equality; each kernel's time per call of its
+     wrapper (calls enqueued back to back between two events) and its
+     device self time under torch.profiler beside its bound, the DP's rows
+     per lane and warps per tile, its time on either side of the batch
+     sizes where the warps per tile change, the trace's share of its time,
+     its compiled instructions per cell;
+  4. a small end-to-end run on cuda and on cpu at run()'s defaults
+     (speculative chains of 12 tiles, two read batches in flight), with
+     the default and with the generic-scoring params.cfg: SAM, counters
+     and the speculative chains' hits, misses and rounds identical;
+  5. reference-guided mode at real size through the CLI, at the defaults:
+     a synthetic genome of E. coli K-12 MG1655's length, 512 simulated
+     10 kb reads plus 16 with a planted 1.5 kb deletion; loci checked
+     against the simulation;
   6. the same case with a generic-scoring params.cfg (gap opens cheaper
      than gap extends), which darwin_tpu's DP needs a branch of its own
      for;
-  7. overlap mode: a small run on cuda and on cpu with identical MHAP and
-     counters, then 512 x 10 kb reads at 10x coverage against themselves
-     through the CLI; pairs checked against the simulation;
-  8. the op-rate probe through its own entry point.
-Every kernel's launch count is set to 0 just before each of the runs of
-phases 5-8 and read just after; a kernel its path never launched fails.
+  7. overlap mode: a small run on cuda and on cpu with identical MHAP,
+     counters and chains (chains of 2: the CPU's twins pay for every
+     level), then 512 x 10 kb reads at 10x coverage against
+     themselves through the CLI; pairs checked against the simulation;
+  8. the op-rate probe through its own entry point;
+  9. the cases of phases 5 and 7 again without speculation, one read batch
+     at a time (spec_k=1, pipeline_depth=1): SAM / MHAP and the counter
+     block identical to the defaults', and more extension rounds.
+Phases 5-7 and 9 print the align phase's reads/s, the extension GCUPS, the
+chains' hits, misses and rounds and the stage seconds of run()'s
+stats_out.  Every kernel's launch count is set to 0 just before each of
+the runs of phases 5-9 and read just after; a kernel its path never
+launched fails.
 The line before the last is the kernels' JSON summary, preceded by the
 card's name and power limit; the last line is {"ok": true, "device":
 {...}}.  Needs one CUDA device; exits nonzero without one.
@@ -64,6 +74,11 @@ KERNELS = {
                 "replaces": "darwin_tpu/ops/gact_pallas.py:103"},
     "gact_tb": {"route": "cuda", "source": "darwin_tpu_torch/csrc/gact_tb.cu",
                 "replaces": "darwin_tpu/ops/gact_pallas.py:620"},
+    # XLA code in darwin_tpu (_device_consumed + the next-request
+    # arithmetic of _extend_round_spec_pallas), not a Pallas kernel
+    "gact_next": {"route": "cuda",
+                  "source": "darwin_tpu_torch/csrc/gact_next.cu",
+                  "replaces": "darwin_tpu/ops/dispatch.py:273"},
     "int_probe": {"route": "cuda",
                   "source": "darwin_tpu_torch/csrc/int_probe.cu",
                   "replaces": "tools/vpu_probe.py:63"},
@@ -239,6 +254,100 @@ def dp_ops_per_cell(start_end, with_trace):
 def _generic(params, go, ge, goL, geL):
     return params._replace(gap_open=go, gap_extend=ge, long_gap_open=goL,
                            long_gap_extend=geL)
+
+
+def _next_inputs(rng, B, dev):
+    """(lane (5, B), curr (2, B)) int64 on the card: both orientations,
+    positions anywhere, at 0, near and at the chromosome's and the read's
+    far ends, so that every clamp of the next-tile rule fires."""
+    rev = rng.integers(0, 2, B)
+    clen = rng.integers(192, 6000, B)
+    qlen = rng.integers(192, 11_000, B)
+    pick = rng.integers(0, 4, B)
+
+    def at(n):
+        return np.select([pick == 0, pick == 1, pick == 2],
+                         [rng.integers(0, n), np.zeros(B, np.int64),
+                          np.maximum(n - rng.integers(1, 500, B), 0)], n)
+    lane = np.stack([rev, rng.integers(0, 1 << 31, B), clen,
+                     rng.integers(0, 1 << 24, B), qlen])
+    curr = np.stack([at(clen), at(qlen)])
+    return (torch.from_numpy(lane.astype(np.int64)).to(dev),
+            torch.from_numpy(curr.astype(np.int64)).to(dev))
+
+
+def _synthetic_records(rng, RT):
+    """Walks no DP made: all M, all D, empty, insert runs up to the 14-bit
+    limit, a walk that ends in inserts, random mixes of every closing op."""
+    cols = [np.full(RT, 3 << 14), np.full(RT, 2 << 14), np.zeros(RT)]
+    c = np.zeros(RT)
+    c[RT - 1] = 0x3FFF
+    cols.append(c)
+    c = np.full(RT, 3 << 14)
+    c[RT // 2] = 0x3FFF | 3 << 14
+    cols.append(c)
+    c = np.full(RT, 3 << 14)
+    c[:RT // 2] = 0
+    c[RT // 2] = 7
+    cols.append(c)
+    for _ in range(58):
+        n_ins = np.where(rng.random(RT) < 0.2, rng.integers(0, 60, RT), 0)
+        cols.append(n_ins | rng.integers(0, 4, RT) << 14)
+    return np.stack(cols, 1).astype(np.int32)
+
+
+def _check_next(rng, kstats, params):
+    """gact_next against spec_next on the card: the walker's records of
+    512 ragged 384x384 start-to-end tiles (the main path's chain levels)
+    and 64 synthetic walks, stop_thr 0, 1, 320 (the main path's: 384 - the
+    tile overlap) and 384, both orientations, all clamps; exact.  Then its
+    time on the walker's records at stop_thr 320."""
+    from darwin_tpu_torch.ops import gact, gact_cuda
+    dev = torch.device("cuda", 0)
+    T, B = 384, 512
+    q, r, ql, rl = (torch.from_numpy(x).to(dev)
+                    for x in _tiles(rng, B, T, T))
+    res = gact_cuda.dp_tiles(q, r, ql, rl, torch.ones(B, dtype=torch.bool,
+                                                      device=dev),
+                             params, True)
+    walked = gact_cuda.traceback_tiles(res["trace"], ql - 1, rl - 1,
+                                       2 * T)[0]
+    synth = torch.from_numpy(_synthetic_records(rng, T)).to(dev)
+    st = kstats["gact_next"]
+    for what, rec in (("walker records, B=512", walked),
+                      ("synthetic records, B=64", synth)):
+        lane, curr = _next_inputs(rng, rec.shape[1], dev)
+        for thr in (0, 1, 320, 384):
+            k = gact_cuda.next_tiles(rec, lane, curr, T, thr, 2 * T)
+            p = gact.spec_next(rec, lane, curr, T, thr, 2 * T)
+            torch.cuda.synchronize()
+            err = int((k - p).abs().max())
+            check(err == 0, f"gact_next != plain on {what}, stop_thr={thr}: "
+                  f"max |diff| {err}")
+            st["max_abs_err"] = max(st.get("max_abs_err", 0), err)
+        clamped = int((k[1] < T).sum() + (k[3] < T).sum())
+        say(3, f"gact_next {what}, stop_thr in (0, 1, 320, 384), both "
+               f"orientations: exact ({clamped} tile sides clamped at a "
+               f"sequence end at stop_thr 384)")
+    lane, curr = _next_inputs(rng, B, dev)
+
+    def kern():
+        return gact_cuda.next_tiles(walked, lane, curr, T, 320, 2 * T)
+
+    def plain():
+        return gact.spec_next(walked, lane, curr, T, 320, 2 * T)
+    self_ms = _self_ms({"next": (kern, "gact_next_kernel")}, 20)["next"]
+    kms = _time_ms(kern, 20)
+    pms = _time_ms(plain, 1)
+    # what the function must move: the records and the lane inputs read
+    # once, the (8, B) int64 result written once
+    n_bytes = walked.numel() * 4 + (5 + 2 + 8) * B * 8
+    bms, bby = bound(n_bytes, 0)
+    say(3, f"gact_next walker records 384x512, stop_thr 320: kernel "
+           f"{kms:.4f} ms per call of 20 enqueued back to back, "
+           f"{self_ms:.4f} ms device self time, plain {pms:.2f} ms, bound "
+           f"{bms:.5f} ms by {bby}")
+    st.update(ms=kms, plain_ms=pms, bound_ms=bms, bound_by=bby)
 
 
 def phase_kernels(seed, kstats):
@@ -530,6 +639,8 @@ def phase_kernels(seed, kstats):
           "an empty batch launched a kernel or gave misshapen outputs")
     say(3, "empty batch (B=0): no launch, empty outputs")
 
+    _check_next(rng, kstats, default)
+
     # the op-rate probe, every mode, against its plain twin: exact
     # (wraparound included: the chains overflow int32 within 64 reps)
     x = torch.from_numpy(rng.integers(0, 1 << 20, (vpu_probe.QT,
@@ -572,9 +683,15 @@ def _counter_block(err_text):
     return [ln for ln in err_text.splitlines() if ln.startswith("#")]
 
 
-def _both_devices(ref, reads, overlap, cfg=None):
-    """The same run on cuda and on cpu: (stdout, counter block, seconds)
-    per device."""
+def _chains(err_text):
+    """(hits, misses, extension rounds) from run()'s spec line."""
+    ln = next(x for x in err_text.splitlines() if "#spec hits" in x).split()
+    return int(ln[3]), int(ln[6]), int(ln[-1])
+
+
+def _both_devices(ref, reads, overlap, cfg=None, **run_kw):
+    """The same run on cuda and on cpu, at run()'s defaults but for
+    ``run_kw``: (stdout, counter block, chains, seconds) per device."""
     import copy
     from darwin_tpu_torch.pipeline.align import run
     res = {}
@@ -582,15 +699,27 @@ def _both_devices(ref, reads, overlap, cfg=None):
         out, err = io.StringIO(), io.StringIO()
         t0 = time.perf_counter()
         run(ref, reads, overlap, cfg=copy.copy(cfg), out=out, err=err,
-            device=dev)
+            device=dev, **run_kw)
         res[dev] = (out.getvalue(), _counter_block(err.getvalue()),
-                    time.perf_counter() - t0)
+                    _chains(err.getvalue()), time.perf_counter() - t0)
     return res["cuda"], res["cpu"]
+
+
+def _same_on_both(phase, what, gpu, cpu):
+    """Check a _both_devices pair: output, counter block and chains equal;
+    returns the message's middle part."""
+    check(gpu[0] == cpu[0], f"{what}: output differs between cuda and cpu")
+    check(gpu[1] == cpu[1], f"{what}: counters differ: {gpu[1]} vs {cpu[1]}")
+    check(gpu[2] == cpu[2], f"{what}: chains differ (hits, misses, rounds) "
+          f"{gpu[2]} vs {cpu[2]}")
+    check(gpu[2][0] > 0, f"{what}: no speculative tile was accepted")
+    return (f"counter block and chains (hits, misses, rounds {gpu[2]}) "
+            f"identical on cuda ({gpu[3]:.1f} s) and cpu ({cpu[3]:.1f} s)")
 
 
 def phase_parity(seed):
     """The same small run on cuda and on cpu, with the default scoring and
-    with path A's: SAM and counters equal."""
+    with path A's: SAM, counters and chains equal."""
     from darwin_tpu_torch.config import Config
     from darwin_tpu_torch.utils import synth
     from darwin_tpu_torch.utils.simulate import simulate_reads, write_fasta
@@ -607,32 +736,29 @@ def phase_parity(seed):
             if gaps:
                 (cfg.gap_open, cfg.gap_extend, cfg.long_gap_open,
                  cfg.long_gap_extend) = gaps
-            (sam_g, blk_g, t_g), (sam_c, blk_c, t_c) = _both_devices(
-                ref, reads, False, cfg)
-            n_rec = sum(1 for ln in sam_g.splitlines()
+            gpu, cpu = _both_devices(ref, reads, False, cfg)
+            n_rec = sum(1 for ln in gpu[0].splitlines()
                         if not ln.startswith("@"))
             check(n_rec > 0, f"parity run ({label}) produced no SAM records")
-            check(sam_g == sam_c,
-                  f"SAM differs between cuda and cpu ({label} scoring)")
-            check(blk_g == blk_c,
-                  f"counters differ ({label}): {blk_g} vs {blk_c}")
-            say(4, f"200 kb genome, 24 x 3 kb reads, {label} scoring: SAM "
-                   f"({n_rec} records, {len(sam_g)} bytes) and counter "
-                   f"block identical on cuda ({t_g:.1f} s) and cpu "
-                   f"({t_c:.1f} s)")
-            sams[label] = sam_g
+            same = _same_on_both(4, f"{label} scoring", gpu, cpu)
+            say(4, f"200 kb genome, 24 x 3 kb reads, {label} scoring, "
+                   f"defaults (spec_k=12, pipeline_depth=2): SAM ({n_rec} "
+                   f"records, {len(gpu[0])} bytes), {same}")
+            sams[label] = gpu[0]
     check(sams["default"] != sams["generic"],
           "the generic scoring changed no alignment")
 
 
-def _run_cli(phase, argv, tmp, n_reads, smi):
+def _run_cli(phase, argv, tmp, n_reads, smi, **run_kw):
     """One CLI run in ``tmp`` (where its params.cfg is read), in-process
     so the kernel launch counts of exactly this run are read: every count
-    is set to 0 just before and read just after.  Returns (stdout, counter
-    block, launches)."""
+    is set to 0 just before and read just after.  ``run_kw`` go to run()
+    (spec_k, pipeline_depth).  Returns (stdout, counter block, launches,
+    chains)."""
     from darwin_tpu_torch import cli
     from darwin_tpu_torch.ops import dispatch, gact_cuda
     out, err = io.StringIO(), io.StringIO()
+    stats = {}
     cwd = os.getcwd()
     os.chdir(tmp)
     try:
@@ -641,7 +767,8 @@ def _run_cli(phase, argv, tmp, n_reads, smi):
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out), \
                 contextlib.redirect_stderr(err):
-            rc = cli.main(argv + ["--device=cuda"])
+            rc = cli.main(argv + ["--device=cuda"], stats_out=stats,
+                          **run_kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(gact_cuda.LAUNCHES)
@@ -651,22 +778,37 @@ def _run_cli(phase, argv, tmp, n_reads, smi):
     check(rc == 0, f"cli exited {rc}")
     err_text = err.getvalue()
     blk = _counter_block(err_text)
-    m = re.search(r"Time elapsed \(aligning reads\): (\d+) msec", err_text)
-    align_s = int(m.group(1)) / 1000
+    chains = _chains(err_text)
     m = re.search(r"finalizing seed position table\): (\d+) msec",
                   err_text)
     index_s = int(m.group(1)) / 1000
+    align_s = stats["align_seconds"]
     gcups = (ext["cells"] / ext["device_ms"] / 1e6 if ext["device_ms"]
              else float("nan"))
+    hits, misses, rounds = chains
+    path = ", ".join(f"{k}={v}" for k, v in run_kw.items()) or \
+        "defaults (spec_k=12, pipeline_depth=2)"
+    say(phase, f"path: {path}")
     say(phase, "counters: " + "; ".join(blk))
     say(phase, f"kernel launches in this run: {launches}")
     say(phase, f"index {index_s:.3f} s, align {align_s:.3f} s, cli wall "
                f"{wall:.1f} s: {n_reads / align_s:.1f} reads/s [{smi}]")
-    say(phase, f"extension DP+traceback: {ext['dispatches']} dispatches, "
-               f"{ext['tiles']} tiles, {ext['cells']} cells in "
+    say(phase, f"speculative chains: {hits} hits, {misses} misses, hit "
+               f"rate {hits / max(hits + misses, 1):.4f}; {rounds} "
+               f"extension rounds")
+    say(phase, f"extension dispatches: {ext['dispatches']}, "
+               f"{ext['tiles']} tiles computed ({ext['spec_tiles']} "
+               f"speculative), {ext['cells']} cells in "
                f"{ext['device_ms']:.1f} ms device time = {gcups:.2f} GCUPS "
                f"[{smi}]")
-    return out.getvalue(), blk, launches
+    say(phase, "stage seconds (stats_out, all batches): " + ", ".join(
+        f"{k}={v:.3f}" for k, v in sorted(stats["stage_seconds"].items(),
+                                          key=lambda kv: -kv[1])))
+    say(phase, "first batch's stages (cold): " + ", ".join(
+        f"{k}={v:.3f}" for k, v in sorted(
+            stats["stage_seconds_cold"].items(), key=lambda kv: -kv[1])[:6])
+        + f"; build seconds in this process {stats['compile_s']:.2f}")
+    return out.getvalue(), blk, launches, chains
 
 
 def _took(kstats, launches, names):
@@ -676,18 +818,22 @@ def _took(kstats, launches, names):
         check(launches[k] > 0, f"kernel {k} never launched on its path")
 
 
-def phase_real(phase, seed, kstats, smi, params_cfg, min_share):
+# the kernels of the default extension path; spec_k=1 launches no gact_next
+DEFAULT_PATH = ["gact_dp", "gact_tb", "gact_next"]
+
+
+def phase_real(phase, seed, kstats, smi, params_cfg, min_share, tmp):
     """Reference-guided mode at real size through the CLI: the E. coli
-    K-12-size case, with the default scoring (phase 5) or the generic
-    params.cfg (phase 6, path A)."""
+    K-12-size case in ``tmp`` (written there if it is not), with the
+    default scoring (phase 5) or the generic params.cfg (phase 6, path
+    A).  Returns (SAM, counter block, chains)."""
     from darwin_tpu_torch.utils import synth
-    with tempfile.TemporaryDirectory() as tmp:
-        truth = synth.ecoli_case(seed, tmp)
-        if params_cfg:
-            with open(f"{tmp}/params.cfg", "w") as f:
-                f.write(params_cfg)
-        sam, blk, launches = _run_cli(phase, ["ref.fa", "reads.fa", "0"],
-                                      tmp, len(truth), smi)
+    truth = _case(tmp, "ecoli", seed)
+    if params_cfg:
+        with open(f"{tmp}/params.cfg", "w") as f:
+            f.write(params_cfg)
+    sam, blk, launches, chains = _run_cli(phase, ["ref.fa", "reads.fa", "0"],
+                                          tmp, len(truth), smi)
     best = {}
     where = {n: [] for n in truth}
     n_rec = 0
@@ -718,7 +864,23 @@ def phase_real(phase, seed, kstats, smi, params_cfg, min_share):
     check(share >= min_share,
           f"only {share:.4f} of reads on the true locus")
     check(large > 0, "no large tiles fired")
-    _took(kstats, launches, ["gact_dp", "gact_tb"])
+    check(chains[0] > 0, "no speculative tile was accepted")
+    _took(kstats, launches, DEFAULT_PATH)
+    return sam, blk, chains
+
+
+def _case(tmp, name, seed):
+    """Write phase 5's (``ecoli``) or phase 7's (``overlap``) real-size
+    case into ``tmp`` unless it is there; returns its truth."""
+    from darwin_tpu_torch.utils import synth
+    make = synth.ecoli_case if name == "ecoli" else synth.overlap_case
+    path = f"{tmp}/truth.json"
+    if not os.path.exists(path):
+        truth = make(seed, tmp)
+        with open(path, "w") as f:
+            json.dump(truth, f)
+    with open(path) as f:
+        return {k: tuple(v) for k, v in json.load(f).items()}
 
 
 def _mhap_pairs(mhap):
@@ -726,10 +888,11 @@ def _mhap_pairs(mhap):
             if " " in ln}
 
 
-def phase_overlap(seed, kstats, smi):
+def phase_overlap(seed, kstats, smi, tmp_real):
     """Path B, overlap mode: a small run on cuda and on cpu with identical
-    MHAP and counters, then 512 x 10 kb reads at 10x coverage against
-    themselves through the CLI, checked against the simulation."""
+    MHAP, counters and chains, then 512 x 10 kb reads at 10x coverage
+    against themselves through the CLI (the case in ``tmp_real``), checked
+    against the simulation.  Returns (MHAP, counter block, chains)."""
     from darwin_tpu_torch.config import Config
     from darwin_tpu_torch.utils import synth
     with tempfile.TemporaryDirectory() as tmp:
@@ -737,21 +900,21 @@ def phase_overlap(seed, kstats, smi):
                            read_len=3000)
         cfg = Config()
         cfg.seed_size = 11          # a 100 kb read set wants a shorter seed
-        (m_g, blk_g, t_g), (m_c, blk_c, t_c) = _both_devices(
-            f"{tmp}/reads.fa", f"{tmp}/reads.fa", True, cfg)
-    n_rec = len(_mhap_pairs(m_g))
+        # chains of 2, not 12: the CPU's twins pay for every level (100 s
+        # at 12, 70 s at 4); phase 4 holds the defaults to the CPU
+        gpu, cpu = _both_devices(f"{tmp}/reads.fa", f"{tmp}/reads.fa",
+                                 True, cfg, spec_k=2)
+    n_rec = len(_mhap_pairs(gpu[0]))
     check(n_rec > 0, "overlap parity run found no overlaps")
-    check(m_g == m_c, "MHAP differs between cuda and cpu")
-    check(blk_g == blk_c, f"counters differ: {blk_g} vs {blk_c}")
-    say(7, f"32 x 3 kb reads of a 40 kb genome vs themselves: MHAP "
-           f"({n_rec} pairs, {len(m_g)} bytes) and counter block identical "
-           f"on cuda ({t_g:.1f} s) and cpu ({t_c:.1f} s)")
+    same = _same_on_both(7, "overlap parity run", gpu, cpu)
+    say(7, f"32 x 3 kb reads of a 40 kb genome vs themselves, spec_k=2, "
+           f"pipeline_depth=2: MHAP ({n_rec} pairs, {len(gpu[0])} bytes), "
+           f"{same}")
 
     min_overlap = Config().min_overlap
-    with tempfile.TemporaryDirectory() as tmp:
-        truth = synth.overlap_case(seed, tmp)
-        mhap, blk, launches = _run_cli(7, ["reads.fa", "reads.fa", "1"],
-                                       tmp, len(truth), smi)
+    truth = _case(tmp_real, "overlap", seed)
+    mhap, blk, launches, chains = _run_cli(
+        7, ["reads.fa", "reads.fa", "1"], tmp_real, len(truth), smi)
     check(not mhap.startswith("@"), "overlap mode printed a SAM header")
 
     def span(a, b):
@@ -796,7 +959,9 @@ def phase_overlap(seed, kstats, smi):
     check(found >= 0.75 * len(want), "true overlaps were missed")
     long_hit, long_n = bands[max(bands)]
     check(long_hit >= 0.95 * long_n, "long true overlaps were missed")
-    _took(kstats, launches, ["gact_dp", "gact_tb"])
+    check(chains[0] > 0, "no speculative tile was accepted")
+    _took(kstats, launches, DEFAULT_PATH)
+    return mhap, blk, chains
 
 
 def phase_probe(kstats, smi):
@@ -821,9 +986,40 @@ def phase_probe(kstats, smi):
     _took(kstats, launches, ["int_probe"])
 
 
+def phase_k1(seed, kstats, smi, dirs, results):
+    """The cases of phases 5 and 7 without speculation, one read batch at
+    a time: the non-speculative path, which must print what the defaults
+    print, in more extension rounds.  ``results`` holds the defaults'
+    outputs by phase; a phase not run in this call is run here."""
+    k1 = dict(spec_k=1, pipeline_depth=1)
+    for phase, name, argv in ((5, "ecoli", ["ref.fa", "reads.fa", "0"]),
+                              (7, "overlap", ["reads.fa", "reads.fa", "1"])):
+        tmp = dirs(name)
+        truth = _case(tmp, name, seed)
+        if phase not in results:
+            out, blk, _, chains = _run_cli(9, argv, tmp, len(truth), smi)
+            results[phase] = (out, blk, chains)
+        out, blk, launches, chains = _run_cli(9, argv, tmp, len(truth), smi,
+                                              **k1)
+        d_out, d_blk, d_chains = results[phase]
+        check(out == d_out, f"phase {phase}'s case: output at spec_k=1, "
+              f"pipeline_depth=1 differs from the defaults'")
+        check(blk == d_blk, f"phase {phase}'s case: counters differ: {blk} "
+              f"vs {d_blk}")
+        check(chains[:2] == (0, 0) and launches["gact_next"] == 0,
+              "spec_k=1 speculated")
+        check(d_chains[2] < chains[2], f"phase {phase}'s case: the defaults "
+              f"took {d_chains[2]} extension rounds, spec_k=1 {chains[2]}")
+        say(9, f"phase {phase}'s case at spec_k=1, pipeline_depth=1: output "
+               f"({len(out)} bytes) and counter block identical to the "
+               f"defaults'; extension rounds {chains[2]} (defaults "
+               f"{d_chains[2]})")
+        _took(kstats, launches, ["gact_dp", "gact_tb"])
+
+
 # ---------------------------------------------------------------- main
 
-ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8}
+ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9}
 # measured on a correct run: the generic scoring's cheap gap opens change
 # CIGARs, not loci
 MIN_LOCUS_SHARE = 0.95
@@ -850,15 +1046,30 @@ def main(argv=None):
         phase_kernels(args.seed, kstats)
     if 4 in phases:
         phase_parity(args.seed)
-    if 5 in phases:
-        phase_real(5, args.seed, kstats, smi, None, MIN_LOCUS_SHARE)
-    if 6 in phases:
-        phase_real(6, args.seed, kstats, smi, GENERIC_PARAMS_CFG,
-                   MIN_LOCUS_SHARE)
-    if 7 in phases:
-        phase_overlap(args.seed, kstats, smi)
-    if 8 in phases:
-        phase_probe(kstats, smi)
+    with contextlib.ExitStack() as stack:
+        made = {}
+
+        def dirs(name):
+            """A directory for a real-size case, kept for phase 9."""
+            if name not in made:
+                made[name] = stack.enter_context(
+                    tempfile.TemporaryDirectory())
+            return made[name]
+        results = {}
+        if 5 in phases:
+            results[5] = phase_real(5, args.seed, kstats, smi, None,
+                                    MIN_LOCUS_SHARE, dirs("ecoli"))
+        if 6 in phases:
+            with tempfile.TemporaryDirectory() as tmp:
+                phase_real(6, args.seed, kstats, smi, GENERIC_PARAMS_CFG,
+                           MIN_LOCUS_SHARE, tmp)
+        if 7 in phases:
+            results[7] = phase_overlap(args.seed, kstats, smi,
+                                       dirs("overlap"))
+        if 8 in phases:
+            phase_probe(kstats, smi)
+        if 9 in phases:
+            phase_k1(args.seed, kstats, smi, dirs, results)
     if phases != ALL_PHASES:
         return 0
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",

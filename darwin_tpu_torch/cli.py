@@ -2,14 +2,17 @@
 (software/main.cpp:168-171):
 
     python -m darwin_tpu_torch.cli <REFERENCE>.fasta <READS>.fasta <0|1> \
-        [--device=cuda|cpu]
+        [--device=cuda|cpu] [--index-cache=FILE.npz] [--profile=DIR]
 
 ``0`` is reference-guided mode (SAM on stdout), ``1`` overlap mode (both
 files are reads, usually the same file; MHAP on stdout).  Reads
 ``params.cfg`` from the current directory when present (the reference's INI
 schema); progress and counters go to stderr.  The device defaults to
 ``cuda`` and the run fails without one; ``cpu`` runs the kernels' plain
-twins and is meant for tests.
+twins and is meant for tests.  ``--index-cache`` loads the seed table from
+FILE when it matches the reference and the config, else builds it and
+writes it there; ``--profile`` writes a torch.profiler trace of the run
+to DIR/trace.json (darwin_tpu/cli.py's flags of the same names).
 """
 
 from __future__ import annotations
@@ -21,16 +24,26 @@ from darwin_tpu_torch.config import Config, load_config
 from darwin_tpu_torch.pipeline.align import run
 
 USAGE = ("Usage: python -m darwin_tpu_torch.cli <REFERENCE>.fasta "
-         "<READS>.fasta OVERLAP(0/1) [--device=cuda|cpu]")
+         "<READS>.fasta OVERLAP(0/1) [--device=cuda|cpu] "
+         "[--index-cache=FILE.npz] [--profile=DIR]")
 
 
-def main(argv=None):
+def main(argv=None, **run_kwargs):
+    """The command line in ``argv`` (sys.argv's by default); a caller in
+    Python may add keyword arguments of ``run`` (``stats_out``,
+    ``spec_k``, ``pipeline_depth``)."""
     argv = sys.argv[1:] if argv is None else argv
     device = "cuda"
+    index_cache = None
+    profile_dir = None
     rest = []
     for a in argv:
         if a.startswith("--device="):
             device = a.split("=", 1)[1]
+        elif a.startswith("--index-cache="):
+            index_cache = a.split("=", 1)[1]
+        elif a.startswith("--profile="):
+            profile_dir = a.split("=", 1)[1]
         elif a.startswith("--"):
             print(f"unknown option {a}\n{USAGE}", file=sys.stderr)
             return 1
@@ -45,8 +58,25 @@ def main(argv=None):
         cfg = load_config("params.cfg", do_overlap=overlap)
     else:
         cfg = Config()
-    run(ref_path, reads_path, overlap, cfg=cfg, device=device)
+    kw = dict(cfg=cfg, device=device, index_cache=index_cache, **run_kwargs)
+    if not profile_dir:
+        run(ref_path, reads_path, overlap, **kw)
+        return 0
+    with _profile(profile_dir, device) as prof:
+        run(ref_path, reads_path, overlap, **kw)
+    prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
     return 0
+
+
+def _profile(profile_dir, device):
+    """torch.profiler over the run: host activity, and the card's where
+    the run is on one (darwin_tpu's jax.profiler.trace counterpart)."""
+    from torch.profiler import ProfilerActivity, profile
+    os.makedirs(profile_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if str(device).startswith("cuda"):
+        activities.append(ProfilerActivity.CUDA)
+    return profile(activities=activities)
 
 
 if __name__ == "__main__":

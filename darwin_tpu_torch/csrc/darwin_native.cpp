@@ -28,12 +28,13 @@ extern "C" {
 // sequence encoding
 // ---------------------------------------------------------------------------
 
-void encode_seq(const uint8_t* ascii, int64_t n, uint8_t* codes5,
-                uint8_t* codes2) {
-    static uint8_t tbl5[256];
-    static uint8_t tbl2[256];
-    static bool init = false;
-    if (!init) {
+// The lookup tables are function-local statics built by their initialiser,
+// which C++11 runs exactly once even when threads make the first call
+// together (two read batches in flight do).
+struct CodeTables {
+    uint8_t tbl5[256];
+    uint8_t tbl2[256];
+    CodeTables() {
         memset(tbl5, 4, sizeof(tbl5));
         memset(tbl2, 0, sizeof(tbl2));
         const char* b = "ACGT";
@@ -43,27 +44,33 @@ void encode_seq(const uint8_t* ascii, int64_t n, uint8_t* codes5,
             tbl2[(uint8_t)b[i]] = i;
             tbl2[(uint8_t)(b[i] + 32)] = i;
         }
-        init = true;
     }
+};
+
+struct CompTable {
+    uint8_t comp[256];
+    CompTable() {
+        memset(comp, 0, sizeof(comp));
+        const char* a = "acgtACGTnN";
+        const char* b = "tgcaTGCAnN";
+        for (int i = 0; i < 10; i++) comp[(uint8_t)a[i]] = (uint8_t)b[i];
+    }
+};
+
+void encode_seq(const uint8_t* ascii, int64_t n, uint8_t* codes5,
+                uint8_t* codes2) {
+    static const CodeTables t;
     for (int64_t i = 0; i < n; i++) {
-        codes5[i] = tbl5[ascii[i]];
-        codes2[i] = tbl2[ascii[i]];
+        codes5[i] = t.tbl5[ascii[i]];
+        codes2[i] = t.tbl2[ascii[i]];
     }
 }
 
 // Returns -1 on success, else the index of the first invalid character.
 int64_t revcomp(const uint8_t* in, int64_t n, uint8_t* out) {
-    static uint8_t comp[256];
-    static bool init = false;
-    if (!init) {
-        memset(comp, 0, sizeof(comp));
-        const char* a = "acgtACGTnN";
-        const char* b = "tgcaTGCAnN";
-        for (int i = 0; i < 10; i++) comp[(uint8_t)a[i]] = (uint8_t)b[i];
-        init = true;
-    }
+    static const CompTable t;
     for (int64_t i = 0; i < n; i++) {
-        uint8_t c = comp[in[i]];
+        uint8_t c = t.comp[in[i]];
         if (c == 0) return i;
         out[n - 1 - i] = c;
     }

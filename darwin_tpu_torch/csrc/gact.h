@@ -45,6 +45,16 @@ int gact_tb(const uint8_t* trace, const int32_t* start_q,
             const int32_t* start_r, int B, int QT, int RT, int max_tb,
             int32_t* rec, int32_t* q_steps, int32_t* r_steps, void* stream);
 
+// The next tile of a speculative chain (gact_next.cu), B, RT, T >= 1,
+// max_ops >= 0.  rec: (RT, B) int32 walker records; lane: (5, B) int64
+// rows rev, chrom_start, chrom_len, q_buf_start, q_len; curr: (2, B)
+// int64 rows curr_ref, curr_q (chromosome- and read-relative).  out:
+// (8, B) int64 rows r_start, r_size, q_start, q_size of the next tile,
+// the new curr_ref, curr_q, and the advance dr, dq.
+int gact_next(const int32_t* rec, const int64_t* lane, const int64_t* curr,
+              int B, int RT, int T, int stop_thr, int max_ops, int64_t* out,
+              void* stream);
+
 #ifdef __cplusplus
 }
 #endif

@@ -18,6 +18,7 @@ import hashlib
 import os
 import subprocess
 import threading
+import time
 
 import numpy as np
 
@@ -29,6 +30,9 @@ _lib = None
 _tried = False
 _error = ""          # why the library is unavailable, once a load failed
 _lock = threading.Lock()
+# seconds this process spent compiling the library (0.0 when it loaded one
+# already built)
+BUILD_INFO = {"seconds": 0.0}
 
 _i64 = ctypes.c_int64
 _p8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
@@ -48,9 +52,11 @@ def _so_path() -> str:
 def _build(path: str) -> None:
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
+    t0 = time.perf_counter()
     subprocess.run(["g++", *_FLAGS, "-o", tmp, _SRC],
                    check=True, capture_output=True)
     os.replace(tmp, path)
+    BUILD_INFO["seconds"] += time.perf_counter() - t0
 
 
 def _load():

@@ -27,7 +27,7 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("gact_dp.cu", "gact_tb.cu", "int_probe.cu")
+SOURCES = ("gact_dp.cu", "gact_tb.cu", "gact_next.cu", "int_probe.cu")
 HEADERS = ("gact.h",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -96,6 +96,8 @@ def _bind(lib) -> None:
     lib.gact_dp_plan.restype = i
     lib.gact_tb.argtypes = [p, p, p, i, i, i, i, p, p, p, p]
     lib.gact_tb.restype = i
+    lib.gact_next.argtypes = [p, p, p, i, i, i, i, i, p, p]
+    lib.gact_next.restype = i
     lib.int_probe.argtypes = [p, p, i, i, p]
     lib.int_probe.restype = i
 

@@ -1,6 +1,7 @@
 """Device dispatchers: tile gather from resident code buffers + tile DP
 (+ traceback).  Counterpart of ``darwin_tpu/ops/dispatch.py``'s
-``gather_tiles``, ``first_tile_scores`` and ``extend_tiles_async``.
+``gather_tiles``, ``first_tile_scores``, ``extend_tiles_async`` and
+``extend_tiles_spec_async`` (speculative K-tile chains).
 
 The genome and the read batch live on the device as 1-byte 5-letter codes;
 tiles are gathered by index arithmetic (a reversed tile is a reversed index
@@ -20,21 +21,49 @@ traceback kernel never spills).
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
 from darwin_tpu_torch.ops import gact
-from darwin_tpu_torch.ops.gact_cuda import dp_tiles, traceback_tiles
+from darwin_tpu_torch.ops.gact_cuda import dp_tiles, next_tiles, \
+    traceback_tiles
+from darwin_tpu_torch.utils.turns import fetch
 
-# extension-dispatch telemetry for this process: tiles, DP cells
-# (tiles x ref x query) and, on CUDA, device milliseconds between events
-# recorded around the DP + traceback launches (read back in resolve(),
-# which synchronises anyway).  reset_ext_stats() zeroes it.
-EXT_STATS = {"dispatches": 0, "tiles": 0, "cells": 0, "device_ms": 0.0}
+# Speculative chain depth, darwin_tpu's SPEC_K (darwin_tpu/ops/dispatch.py:
+# 337): the default of pipeline.align.run(spec_k=...).  Outputs do not
+# depend on it: a level is accepted only while its device-computed request
+# equals the host's exact one.
+SPEC_K = 12
+
+# extension-dispatch telemetry for this process: dispatches, tiles and DP
+# cells (tiles x ref x query) computed — a speculative dispatch counts all
+# B x K tiles of its chain, accepted or not, and its levels 2..K again as
+# ``spec_tiles`` — and, on CUDA, device milliseconds between two events
+# recorded on the dispatch's stream around its DP + traceback (+ next-tile)
+# launches, the whole chain for a speculative one (read back in resolve(),
+# which synchronises anyway).  Two batches in flight update it from two
+# threads, under _stats_lock.  reset_ext_stats() zeroes it.
+EXT_STATS = {"dispatches": 0, "tiles": 0, "spec_tiles": 0, "cells": 0,
+             "device_ms": 0.0}
+_stats_lock = threading.Lock()
 
 
 def reset_ext_stats():
-    EXT_STATS.update(dispatches=0, tiles=0, cells=0, device_ms=0.0)
+    with _stats_lock:
+        EXT_STATS.update(dispatches=0, tiles=0, spec_tiles=0, cells=0,
+                         device_ms=0.0)
+
+
+def _count_dispatch(tiles, spec_tiles, cells, events):
+    ms = events[0].elapsed_time(events[1]) if events else 0.0
+    with _stats_lock:
+        EXT_STATS["dispatches"] += 1
+        EXT_STATS["tiles"] += tiles
+        EXT_STATS["spec_tiles"] += spec_tiles
+        EXT_STATS["cells"] += cells
+        EXT_STATS["device_ms"] += ms
 
 
 def gather_tiles(ref_codes, query_codes, r_start, r_size, q_start, q_size,
@@ -90,39 +119,152 @@ def extend_tiles_async(ref_codes, query_codes, r_start, r_size, q_start,
     dev = ref_codes.device
     req = _upload(dev, r_start, r_size, q_start, q_size, rev)
     B = req.shape[1]
-    timed = dev.type == "cuda"
-    if timed:
-        ev0 = torch.cuda.Event(enable_timing=True)
-        ev1 = torch.cuda.Event(enable_timing=True)
+    events = _events(dev)
     qtile, rtile = gather_tiles(ref_codes, query_codes, req[0], req[1],
                                 req[2], req[3], req[4] != 0, qt, rt)
-    q_size32 = req[3].to(torch.int32)
-    r_size32 = req[1].to(torch.int32)
     se = torch.ones(B, dtype=torch.bool, device=dev)
-    if timed:
-        ev0.record()
+    if events:
+        events[0].record()
+    rec, stats = _extend_tile(qtile, rtile, req[3], req[1], se, params,
+                              max_tb)
+    if events:
+        events[1].record()
+    packed = torch.cat([rec, torch.stack(stats)])
+    L = min(qt + rt, 2 * max_tb)
+
+    def resolve():
+        p = fetch(packed)
+        _count_dispatch(B, 0, B * qt * rt, events)
+        R = p.shape[0] - 5
+        ops, n_ops = gact.expand_records(p[:R], B, L)
+        return {"ops": ops, "n_ops": n_ops, **_stats_dict(p[R:])}
+    return resolve
+
+
+def _events(dev):
+    """The event pair of a dispatch's device interval (CUDA only)."""
+    if dev.type != "cuda":
+        return None
+    return (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+
+
+def _extend_tile(qtile, rtile, q_size, r_size, se, params, max_tb):
+    """One level's DP (with trace) and walk: the (RT, B) records and the
+    five (B,) int32 stats q_steps, r_steps, score, query_max_pos,
+    ref_max_pos."""
+    q_size32 = q_size.to(torch.int32)
+    r_size32 = r_size.to(torch.int32)
     res = dp_tiles(qtile, rtile, q_size32, r_size32, se, params,
                    with_trace=True)
     rec, q_steps, r_steps = traceback_tiles(
         res["trace"], q_size32 - 1, r_size32 - 1, max_tb)
-    if timed:
-        ev1.record()
-    packed = torch.cat([rec, torch.stack(
-        [q_steps, r_steps, res["score"], res["query_max_pos"],
-         res["ref_max_pos"]])])
+    return rec, (q_steps, r_steps, res["score"], res["query_max_pos"],
+                 res["ref_max_pos"])
+
+
+def _stats_dict(rows):
+    return {"q_steps": rows[0], "r_steps": rows[1], "score": rows[2],
+            "query_max_pos": rows[3], "ref_max_pos": rows[4]}
+
+
+class SpecLevels:
+    """Levels 2..K of a speculative dispatch's records, expanded into op
+    arrays only for the lanes asked for: the extension manager decodes a
+    level only for the lanes whose chain reached it and was accepted.
+    ``take(j, all B lanes)`` is darwin_tpu's ``(ops_spec[j],
+    n_ops_spec[j])``, j = 0..K-2."""
+
+    def __init__(self, recs, L):
+        self._recs = recs          # (K - 1, RT, B) int32
+        self._L = L
+
+    def take(self, j, lanes):
+        """(ops (len(lanes), L) uint8, n_ops) of level j's ``lanes``."""
+        lanes = np.asarray(lanes, np.int64)
+        return gact.expand_records(self._recs[j][:, lanes], len(lanes),
+                                   self._L)
+
+
+def extend_tiles_spec_async(ref_codes, query_codes, r_start, r_size,
+                            q_start, q_size, rev, chrom_start, chrom_len,
+                            q_buf_start, q_len, params, qt: int, rt: int,
+                            max_tb: int, stop_thr: int, K: int = SPEC_K):
+    """Speculative K-tile extension dispatch, square tiles (qt == rt)
+    only (darwin_tpu/ops/dispatch.py:478-578).  Tile 1 is the request;
+    each later level's request is computed on the device by ``next_tiles``
+    from the walk of the level before, as the host would compute it if the
+    extension took that walk's cutoff advance and did not terminate.  All
+    K levels (gather, DP with trace, walk, next tile) are enqueued with no
+    host sync; resolve() fetches the K record matrices, tile 1's stats and
+    the K-1 speculative requests in one transfer.
+
+    chrom_start / chrom_len: each lane's chromosome (absolute start,
+    padded length); q_buf_start / q_len: its read's start in the query
+    buffer and its length.  resolve() -> {ops, n_ops and tile 1's stats as
+    extend_tiles_async's, ``spec_req``: per level 2..K a tuple of (B,)
+    int64 (r_start, r_size, q_start, q_size) — the request the level was
+    computed under — and ``ops_spec``: a SpecLevels of those levels'
+    walks}."""
+    if qt != rt:
+        raise ValueError(f"speculative chains take square tiles: {qt}x{rt}")
+    if K < 1:
+        raise ValueError(f"chain depth K must be >= 1: {K}")
+    dev = ref_codes.device
+    rows = [np.asarray(x, np.int64) for x in (
+        r_start, r_size, q_start, q_size, rev, chrom_start, chrom_len,
+        q_buf_start, q_len)]
+    r_start, r_size, q_start, q_size, rev = rows[:5]
+    # the extension's position at tile 1 (chromosome- and read-relative):
+    # the tile's first cell going right, its last going left
+    rel_r = r_start - rows[5]
+    rel_q = q_start - rows[7]
+    rv = rev != 0
+    curr0 = [np.where(rv, rel_r, rel_r + r_size - 1),
+             np.where(rv, rel_q, rel_q + q_size - 1)]
+    req = _upload(dev, *rows, *curr0)
+    B = req.shape[1]
+    rev_d = req[4] != 0
+    lane = req[4:9]
+    curr = req[9:11]
+    se = torch.ones(B, dtype=torch.bool, device=dev)
+    events = _events(dev)
+    tile = (req[0], req[1], req[2], req[3])
+    recs, spec = [], []
+    for j in range(K):
+        qtile, rtile = gather_tiles(ref_codes, query_codes, tile[0], tile[1],
+                                    tile[2], tile[3], rev_d, qt, rt)
+        if events and j == 0:
+            events[0].record()
+        rec, stats = _extend_tile(qtile, rtile, tile[3], tile[1], se,
+                                  params, max_tb)
+        recs.append(rec)
+        if j == 0:
+            stats1 = torch.stack(stats)
+        if j < K - 1:
+            nxt = next_tiles(rec, lane, curr, qt, stop_thr, qt + rt)
+            tile = (nxt[0], nxt[1], nxt[2], nxt[3])
+            curr = nxt[4:6]
+            spec.append(nxt[:4])
+    if events:
+        events[1].record()
+    # one int32 matrix: the records, the stats, then the int64 requests'
+    # bytes as int32 pairs
+    parts = recs + [stats1]
+    if spec:
+        parts.append(torch.cat(spec).view(torch.int32).reshape(-1, B))
+    packed = torch.cat(parts)
     L = min(qt + rt, 2 * max_tb)
 
     def resolve():
-        p = packed.cpu().numpy()
-        if timed:
-            EXT_STATS["device_ms"] += ev0.elapsed_time(ev1)
-        EXT_STATS["dispatches"] += 1
-        EXT_STATS["tiles"] += B
-        EXT_STATS["cells"] += B * qt * rt
-        R = p.shape[0] - 5
+        p = fetch(packed)
+        _count_dispatch(B * K, B * (K - 1), B * K * qt * rt, events)
+        R = rt
         ops, n_ops = gact.expand_records(p[:R], B, L)
-        tail = p[R:]
-        return {"ops": ops, "n_ops": n_ops, "q_steps": tail[0],
-                "r_steps": tail[1], "score": tail[2],
-                "query_max_pos": tail[3], "ref_max_pos": tail[4]}
+        tail = p[K * R + 5:].reshape(-1).view(np.int64).reshape(-1, B)
+        spec_req = [tuple(tail[4 * j:4 * j + 4]) for j in range(K - 1)]
+        return {"ops": ops, "n_ops": n_ops,
+                **_stats_dict(p[K * R:K * R + 5]),
+                "spec_req": spec_req,
+                "ops_spec": SpecLevels(p[R:K * R].reshape(K - 1, R, B), L)}
     return resolve

@@ -257,6 +257,71 @@ def traceback(trace, start_q, start_r, max_tb: int):
     return rec, qs.to(torch.int32), rs.to(torch.int32)
 
 
+def spec_next(rec, lane, curr, T: int, stop_thr: int, max_ops: int):
+    """Plain twin of the ``gact_next`` kernel: the next square tile of a
+    speculative chain, from the walker's records of the tile before.
+
+    The advance (dr, dq) is darwin_tpu/ops/dispatch.py:_device_consumed
+    (:273-329) term for term: the walk's op stream cut at L = 32 *
+    ceil(max_ops / 32) ops, taken per 32-op word, a word only up to and
+    including its first M once the applied count at the word's start plus
+    the M's 1-based place reaches ``stop_thr``.  The new position and the
+    next tile are the arithmetic of _extend_round_spec_pallas (:433-451),
+    in int64.
+
+    rec (RT, B) int32 records (``nI | closing << 14`` per column); lane
+    (5, B) int64 rows rev, chrom_start, chrom_len, q_buf_start, q_len;
+    curr (2, B) int64 rows curr_ref, curr_q.  Returns (8, B) int64 rows
+    r_start, r_size, q_start, q_size, curr_ref, curr_q, dr, dq."""
+    dev = rec.device
+    i64 = torch.int64
+    RT, B = rec.shape
+    w = rec.to(i64).flip(0)                     # walk order
+    n_ins = w & 0x3FFF
+    closing = (w >> 14) & 0x3
+    has_close = (closing != 0).to(i64)
+    ends = torch.cumsum(n_ins + has_close, 0)
+    n_ops = ends[-1] if RT else torch.zeros(B, dtype=i64, device=dev)
+    L = -(-max_ops // 32) * 32
+    # the stream: I everywhere, each closing op at its place (places past
+    # L go to a spare row), 0 past the stream's end
+    ops = torch.full((L + 1, B), OP_I, dtype=i64, device=dev)
+    close_pos = torch.where(has_close == 1, ends - 1, L).clamp_(max=L)
+    ops.scatter_(0, close_pos, torch.where(has_close == 1, closing, OP_I))
+    ops = ops[:L]
+    opidx = torch.arange(L, dtype=i64, device=dev)[:, None]
+    ops = torch.where(opidx < n_ops[None, :], ops, 0)
+    bidx = torch.arange(1, 33, dtype=i64, device=dev)[:, None]
+    count = torch.zeros(B, dtype=i64, device=dev)
+    dr = torch.zeros(B, dtype=i64, device=dev)
+    dq = torch.zeros(B, dtype=i64, device=dev)
+    for t0 in range(0, L, 32):
+        blk = ops[t0:t0 + 32]
+        cond = (count[None, :] + bidx >= stop_thr) & (blk == OP_M)
+        first = torch.where(cond, bidx, 33).min(0).values
+        consumed = torch.minimum(first.clamp(max=32),
+                                 (n_ops - t0).clamp(0, 32))
+        take = bidx <= consumed[None, :]
+        dr += (take & (blk != OP_I)).sum(0)
+        dq += (take & (blk != OP_D)).sum(0)
+        count += consumed
+    rev = lane[0] != 0
+    chrom_start, chrom_len, q_buf_start, q_len = lane[1], lane[2], lane[3], \
+        lane[4]
+    cr = torch.where(rev, torch.minimum(curr[0] + dr, chrom_len),
+                     (curr[0] - dr).clamp(min=0))
+    cq = torch.where(rev, torch.minimum(curr[1] + dq, q_len),
+                     (curr[1] - dq).clamp(min=0))
+    r_size = torch.where(rev, (chrom_len - cr).clamp(max=T),
+                         (cr + 1).clamp(max=T)).clamp(min=1)
+    q_size = torch.where(rev, (q_len - cq).clamp(max=T),
+                         (cq + 1).clamp(max=T)).clamp(min=1)
+    r_rel = torch.where(rev, cr, torch.where(cr >= T, cr - T + 1, 0))
+    q_rel = torch.where(rev, cq, torch.where(cq >= T, cq - T + 1, 0))
+    return torch.stack([chrom_start + r_rel, r_size, q_buf_start + q_rel,
+                        q_size, cr, cq, dr, dq])
+
+
 def expand_records(rec: np.ndarray, n_valid: int, L: int):
     """Per-column (nI, closing) records -> the serial walker's op arrays,
     vectorized with np.repeat (darwin_tpu/ops/gact_pallas.py:920-927).

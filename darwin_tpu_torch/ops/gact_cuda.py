@@ -1,37 +1,43 @@
 """Wrappers of the GACT kernels (counterpart of
-``darwin_tpu/ops/gact_pallas.py``'s ``_dp_call`` and ``_tb_call``), and the
-launch counts of every kernel of the package.
+``darwin_tpu/ops/gact_pallas.py``'s ``_dp_call`` and ``_tb_call``, and of
+``darwin_tpu/ops/dispatch.py``'s ``_device_consumed`` with the next-request
+arithmetic of its speculative chains), and the launch counts of every
+kernel of the package.
 
-``dp_tiles`` launches ``csrc/gact_dp.cu`` and ``traceback_tiles`` launches
-``csrc/gact_tb.cu`` for CUDA tensors, on the current stream, without
-synchronising.  A tensor on the CPU takes the kernel's plain twin in
-``ops/gact.py``; any other device raises.  An empty batch returns empty
-outputs on any device and launches nothing.  Each wrapper checks device,
-dtype, shape and contiguity, allocates its outputs, raises when the launch
-is refused (the limits live in the sources alone: ``csrc/gact.h``,
-``csrc/int_probe.cu``), and adds one
-to its launch count (``LAUNCHES``) where — and only where — it launches
-its kernel.
+``dp_tiles`` launches ``csrc/gact_dp.cu``, ``traceback_tiles``
+``csrc/gact_tb.cu`` and ``next_tiles`` ``csrc/gact_next.cu`` for CUDA
+tensors, on the current stream, without synchronising.  A tensor on the
+CPU takes the kernel's plain twin in ``ops/gact.py``; any other device
+raises.  An empty batch returns empty outputs on any device and launches
+nothing.  Each wrapper checks device, dtype, shape and contiguity,
+allocates its outputs, raises when the launch is refused (the limits live
+in the sources alone: ``csrc/gact.h``, ``csrc/int_probe.cu``), and adds
+one to its launch count (``LAUNCHES``) where — and only where — it
+launches its kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
 from darwin_tpu_torch.ops import build, gact
 
 # kernel launches in this process, by kernel (plain-twin calls on CPU
-# tensors do not count); reset_launches() zeroes them
-LAUNCHES = {"gact_dp": 0, "gact_tb": 0, "int_probe": 0}
+# tensors do not count); reset_launches() zeroes them.  Two read batches in
+# flight launch from two threads, so every update holds _launch_lock.
+LAUNCHES = {"gact_dp": 0, "gact_tb": 0, "gact_next": 0, "int_probe": 0}
+_launch_lock = threading.Lock()
 
 _CUDA_ERROR_INVALID_VALUE = 1      # what the sources' limits checks return
 
 
 def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _launch_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def check_tensor(name, t, dtype, ndim, device):
@@ -61,7 +67,8 @@ def count_launch(name, err, shape):
                          f"source states (csrc/)")
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
+    with _launch_lock:
+        LAUNCHES[name] += 1
 
 
 def dp_tiles(qcodes, rcodes, qlens, rlens, start_end, params, with_trace):
@@ -160,3 +167,35 @@ def traceback_tiles(trace, start_q, start_r, max_tb: int):
                           ptr(r_steps), stream_ptr(dev))
     count_launch("gact_tb", err, f"trace {QT}x{RT} (query x ref), B={B}")
     return rec, q_steps, r_steps
+
+
+def next_tiles(rec, lane, curr, T: int, stop_thr: int, max_ops: int):
+    """The next square tile of each lane's speculative chain.  rec (RT, B)
+    int32 walker records; lane (5, B) int64 rows rev, chrom_start,
+    chrom_len, q_buf_start, q_len; curr (2, B) int64 rows curr_ref, curr_q.
+    Returns (8, B) int64 rows r_start, r_size, q_start, q_size, curr_ref,
+    curr_q, dr, dq (``gact.spec_next`` states the rule)."""
+    dev = rec.device
+    check_tensor("rec", rec, torch.int32, 2, dev)
+    check_tensor("lane", lane, torch.int64, 2, dev)
+    check_tensor("curr", curr, torch.int64, 2, dev)
+    RT, B = rec.shape
+    if lane.shape != (5, B) or curr.shape != (2, B):
+        raise ValueError(f"next_tiles: lane {tuple(lane.shape)} and curr "
+                         f"{tuple(curr.shape)} must be (5, {B}) and (2, {B})")
+    if T < 1 or max_ops < 0:
+        raise ValueError(f"next_tiles: T={T}, max_ops={max_ops}")
+    if B == 0:
+        return torch.empty((8, 0), dtype=torch.int64, device=dev)
+    if dev.type == "cpu":
+        return gact.spec_next(rec, lane, curr, T, stop_thr, max_ops)
+    if dev.type != "cuda":
+        raise ValueError(f"next_tiles: unsupported device {dev}")
+    lib = build.load()
+    out = torch.empty((8, B), dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.gact_next(ptr(rec), ptr(lane), ptr(curr), B, RT, int(T),
+                            int(stop_thr), int(max_ops), ptr(out),
+                            stream_ptr(dev))
+    count_launch("gact_next", err, f"records {RT}x{B}, T={T}")
+    return out

@@ -6,34 +6,40 @@ overlap mode the "reference" is the reads file itself).
 Align phase, per read batch: Seeder (device D-SOFT + host chaining) ->
 filter (device first tiles + host slope filter) -> ExtensionManager (device
 GACT tiles + host decode) -> SAM (reference-guided) or MHAP (overlap).
-stdout and the 7-line counter block are byte-identical to darwin_tpu's.
+stdout and the 7-line counter block are byte-identical to darwin_tpu's,
+at any speculative chain depth and any number of batches in flight.
 
-Not ported yet: read-batch pipelining (``pipeline_depth`` > 1) and stage
-telemetry, ``--index-cache``, the csr index layout, meshes and multi-host
-runs.
+Not ported yet: the csr index layout, meshes and multi-host runs.
 """
 
 from __future__ import annotations
 
+import collections
+import concurrent.futures
+import os
 import sys
+import threading
 import time
 from typing import List
 
 import numpy as np
 import torch
 
+from darwin_tpu_torch import native
 from darwin_tpu_torch.config import Config
 from darwin_tpu_torch.genome import GenomeStore, Read, encode5
 from darwin_tpu_torch.io.fasta import iter_read_batches, load_genome
 from darwin_tpu_torch.pipeline import filter as flt
 from darwin_tpu_torch.index.seed_table import SeedTable, build_seed_table
-from darwin_tpu_torch.ops import gact
-from darwin_tpu_torch.ops.dispatch import first_tile_scores
+from darwin_tpu_torch.ops import build, gact
+from darwin_tpu_torch.ops.dispatch import SPEC_K, first_tile_scores
 from darwin_tpu_torch.ops.gact_cuda import LAUNCHES
 from darwin_tpu_torch.pipeline import printer
 from darwin_tpu_torch.pipeline.extend import ExtensionManager
 from darwin_tpu_torch.seeding.seeder import Seeder
 from darwin_tpu_torch.utils.device import resolve_device
+from darwin_tpu_torch.utils.stages import mark
+from darwin_tpu_torch.utils.turns import HostTurns, fetch
 
 
 def new_counters():
@@ -45,7 +51,10 @@ def new_counters():
         "num_extend_tiles": 0,
         "num_active_tiles": 0,
         "num_large_tiles": 0,
-        # non-reference telemetry, printed after the counter block
+        # non-reference telemetry, printed after the counter block:
+        # speculative-chain acceptance and extension rounds
+        "num_spec_hits": 0,
+        "num_spec_misses": 0,
         "num_extend_rounds": 0,
         "num_queried_buckets": 0,
         "num_capped_buckets": 0,
@@ -53,11 +62,26 @@ def new_counters():
 
 
 class Aligner:
+    """Thread-sharing contract: ``run(pipeline_depth=2)`` calls
+    ``align_batch`` from two threads on one Aligner.  Per-batch state stays
+    in the per-call ``counters`` and stage dicts; the shared stage totals
+    are merged under a lock; the seed table, genome codes and scoring are
+    read-only.
+
+    ``stage_seconds``: host seconds per stage over all batches
+    (``read_upload``, ``seed``, ``filter``, ``extend``, ``print`` and the
+    sub-stages of the seeder and the extension manager nested in them);
+    ``stage_seconds_cold``: the first batch's alone."""
+
     def __init__(self, cfg: Config, store: GenomeStore,
-                 table: SeedTable | None = None, device="cuda"):
+                 table: SeedTable | None = None, device="cuda",
+                 spec_k: int = SPEC_K):
+        if spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1: {spec_k}")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.store = store
+        self.spec_k = spec_k
         self.table = table or build_seed_table(store, cfg, self.device)
         if self.table.positions.device != self.device:
             raise ValueError(f"seed table is on {self.table.positions.device}"
@@ -65,6 +89,10 @@ class Aligner:
         self.seeder = Seeder(self.table, cfg)
         self.params = gact.make_params(cfg)
         self.counters = new_counters()
+        self.stage_seconds: dict = {}
+        self.stage_seconds_cold: dict = {}
+        self._batch_seq = 0
+        self._stage_lock = threading.Lock()
         # genome codes + the extender's large-tile 'N' margin, uploaded once
         # (one buffer serves the filter and every extension gather)
         bases = store.bases_with_margin(4 * cfg.large_tile_long)
@@ -95,7 +123,7 @@ class Aligner:
         batch, n, res = dispatched
         if n == 0:
             return []
-        scores, qmax, rmax = res["packed"].cpu().numpy()
+        scores, qmax, rmax = fetch(res["packed"])
         counters["num_extend_requests"] += int(
             (scores >= cfg.first_tile_score_threshold).sum())
         locs = flt.collect_locations(batch, scores, rmax, qmax, self.store,
@@ -103,22 +131,33 @@ class Aligner:
         return flt.slope_filter(locs, cfg, counters)
 
     def align_batch(self, reads: List[Read], counters=None) -> List[str]:
-        """Seed, filter, extend and print one batch of reads."""
+        """Seed, filter, extend and print one batch of reads.  counters:
+        this batch's counter dict (two batches in flight must not share
+        one); the Aligner's own by default."""
         cfg = self.cfg
         if counters is None:
             counters = self.counters
         counters["num_reads"] += len(reads)
+        with self._stage_lock:
+            first_batch = self._batch_seq == 0
+            self._batch_seq += 1
+        tacc: dict = {}          # this call's; merged under the lock
+        t0 = time.perf_counter()
         mgr = ExtensionManager(self.store, reads, cfg, self.params,
-                               self.ref_codes)
-        seeded = self.seeder.seed_batch(reads)
+                               self.ref_codes, spec_k=self.spec_k,
+                               stage_seconds=tacc)
+        t0 = mark(tacc, "read_upload", t0)
+        seeded = self.seeder.seed_batch(reads, stage_seconds=tacc)
         counters["num_queried_buckets"] += seeded.n_queried_buckets
         counters["num_capped_buckets"] += seeded.n_capped_buckets
+        t0 = mark(tacc, "seed", t0)
         fw_d = self._filter_dispatch(reads, seeded.fw_anchors, "+",
                                      counters, mgr)
         rc_d = self._filter_dispatch(reads, seeded.rc_anchors, "-",
                                      counters, mgr)
         fw_locs = self._filter_collect(fw_d, counters)
         rc_locs = self._filter_collect(rc_d, counters)
+        t0 = mark(tacc, "filter", t0)
 
         # per read, per strand (fw then rc), slope-filter order kept — the
         # reference's effective one-read batches
@@ -133,24 +172,86 @@ class Aligner:
             groups.append((i, "+", fw_by_read[i]))
             groups.append((i, "-", rc_by_read[i]))
         emitted = mgr.run(groups, reads, counters)
+        t0 = mark(tacc, "extend", t0)
         alignments = []
         for i in range(len(reads)):
             alignments.extend(emitted[2 * i])
             alignments.extend(emitted[2 * i + 1])
         if cfg.do_overlap:
-            return printer.mhap_lines(alignments, reads, self.store, cfg)
-        return printer.sam_lines(alignments, reads, self.store)
+            lines = printer.mhap_lines(alignments, reads, self.store, cfg)
+        else:
+            lines = printer.sam_lines(alignments, reads, self.store)
+        mark(tacc, "print", t0)
+        with self._stage_lock:
+            for k, v in tacc.items():
+                self.stage_seconds[k] = self.stage_seconds.get(k, 0.0) + v
+            if first_batch:
+                self.stage_seconds_cold = dict(tacc)
+        return lines
+
+
+def _load_index(index_cache, store, cfg, dev, err):
+    """The seed table in ``index_cache`` when it matches the reference and
+    the config (darwin_tpu/pipeline/align.py:420-433), else None."""
+    if index_cache is None or not os.path.exists(index_cache):
+        return None
+    table = SeedTable.load(index_cache, device=dev)
+    if (table.kmer_size != cfg.seed_size
+            or table.minimizer_window != cfg.minimizer_window
+            or table.ref_size != store.size):
+        print(f"index cache {index_cache} does not match the "
+              "reference/config; rebuilding", file=err)
+        return None
+    return table
+
+
+def _in_flight(dev):
+    """The worker threads' call of align_batch: the batches take turns on
+    the host (utils.turns), and on CUDA each worker thread launches on a
+    stream of its own, made to wait once on the stream that uploaded the
+    genome and the index, so that one batch's fetch does not wait for the
+    other batch's kernels."""
+    turns = HostTurns()
+    main = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+    local = threading.local()
+
+    def call(fn, *a):
+        with turns.turn():
+            if main is None:
+                return fn(*a)
+            s = getattr(local, "stream", None)
+            if s is None:
+                s = local.stream = torch.cuda.Stream(dev)
+                s.wait_stream(main)
+            with torch.cuda.stream(s):
+                return fn(*a)
+    return call
 
 
 def run(ref_path: str, reads_path: str, do_overlap: bool,
         cfg: Config | None = None, out=None, err=None,
-        reads_per_batch: int = 128, device="cuda") -> dict:
+        reads_per_batch: int = 128, device="cuda", pipeline_depth: int = 2,
+        index_cache: str | None = None, stats_out: dict | None = None,
+        spec_k: int = SPEC_K) -> dict:
     """Align ``reads_path`` against ``ref_path`` on ``device``; SAM
     (``do_overlap`` false) or MHAP (true; ``ref_path`` is then a reads
     file too, usually the same one) to ``out``, progress and counters to
-    ``err``.  Read batches run one at a time (darwin_tpu's default
-    overlaps two; outputs are the same at any depth).  Returns the counter
-    dict."""
+    ``err``.  Returns the counter dict.
+
+    pipeline_depth: read batches in flight (darwin_tpu/pipeline/align.py:
+    456-490), each on a worker thread: one batch's host work runs while
+    another waits for the card (utils.turns); output and counters are
+    collected in submission order, so they are the same at any depth.
+    spec_k: tiles per speculative extension chain (1: none); outputs are
+    the same at any depth.  index_cache: an .npz seed table, loaded when
+    it matches the reference and ``seed_size`` / ``minimizer_window``,
+    else built and written there.  stats_out: filled with ``align_seconds``,
+    ``stage_seconds`` (``Aligner.stage_seconds``), ``stage_seconds_cold``
+    (the first batch), ``stage_seconds_warm`` (the rest), ``counters`` and
+    ``compile_s`` (seconds this process spent building the native and the
+    CUDA libraries)."""
+    if pipeline_depth < 1:
+        raise ValueError(f"pipeline_depth must be >= 1: {pipeline_depth}")
     dev = resolve_device(device)
     out = out or sys.stdout
     err = err or sys.stderr
@@ -166,7 +267,11 @@ def run(ref_path: str, reads_path: str, do_overlap: bool,
 
     print("Finalizing seed position table ...", file=err)
     t0 = time.time()
-    aligner = Aligner(cfg, store, device=dev)
+    table = _load_index(index_cache, store, cfg, dev, err)
+    aligner = Aligner(cfg, store, table=table, device=dev, spec_k=spec_k)
+    if index_cache is not None and table is None:
+        aligner.table.save(index_cache)
+        print(f"Seed table saved to {index_cache}", file=err)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     index_s = time.time() - t0
@@ -176,14 +281,35 @@ def run(ref_path: str, reads_path: str, do_overlap: bool,
     print("Aligning reads ...", file=err)
     t0 = time.time()
     header_done = False
-    for batch in iter_read_batches(reads_path, reads_per_batch):
-        lines = aligner.align_batch(batch)
+    c = aligner.counters
+    inflight = collections.deque()
+
+    def drain():
+        nonlocal header_done
+        fut, cnt = inflight.popleft()
+        lines = fut.result()
+        for k, v in cnt.items():
+            c[k] += v
         if lines and not do_overlap and not header_done:
             out.write(printer.sam_header(store))
             header_done = True
         out.writelines(lines)
+
+    in_flight = _in_flight(dev)
+    with concurrent.futures.ThreadPoolExecutor(pipeline_depth) as pool:
+        for batch in iter_read_batches(reads_path, reads_per_batch):
+            cnt = new_counters()
+            if pipeline_depth > 1:
+                fut = pool.submit(in_flight, aligner.align_batch, batch, cnt)
+            else:       # on the calling thread and its stream
+                fut = concurrent.futures.Future()
+                fut.set_result(aligner.align_batch(batch, cnt))
+            inflight.append((fut, cnt))
+            if len(inflight) >= pipeline_depth:
+                drain()
+        while inflight:
+            drain()
     align_s = time.time() - t0
-    c = aligner.counters
     print(f"#reads: {c['num_reads']}", file=err)
     print(f"#filter tiles: {c['num_filter_tiles']}", file=err)
     print(f"#extend requests: {c['num_extend_requests']}", file=err)
@@ -193,12 +319,27 @@ def run(ref_path: str, reads_path: str, do_overlap: bool,
     print(f"#large tiles: {c['num_large_tiles']}", file=err)
     # non-reference telemetry, prefixed so nothing mistakes it for the
     # reference's counter block (software/main.cpp:713-719) above
-    print(f"[darwin_tpu_torch] device: {dev}  #extend rounds: "
-          f"{c['num_extend_rounds']}", file=err)
+    h, m = c["num_spec_hits"], c["num_spec_misses"]
+    rate = f"{h / (h + m):.3f}" if h + m else "n/a"
+    print(f"[darwin_tpu_torch] device: {dev}", file=err)
+    print(f"[darwin_tpu_torch] #spec hits: {h}  #spec misses: {m}  "
+          f"hit rate: {rate}  #extend rounds: {c['num_extend_rounds']}",
+          file=err)
     print(f"[darwin_tpu_torch] #queried buckets: {c['num_queried_buckets']}"
           f"  #occupancy-capped: {c['num_capped_buckets']}", file=err)
     print("[darwin_tpu_torch] kernel launches: " + "  ".join(
         f"{k}={v}" for k, v in LAUNCHES.items()), file=err)
     print(f"Time elapsed (aligning reads): {int(align_s * 1000)} msec",
           file=err)
+    if stats_out is not None:
+        total = aligner.stage_seconds
+        cold = aligner.stage_seconds_cold
+        stats_out["align_seconds"] = align_s
+        stats_out["stage_seconds"] = dict(total)
+        stats_out["stage_seconds_cold"] = dict(cold)
+        stats_out["stage_seconds_warm"] = {
+            k: v - cold.get(k, 0.0) for k, v in total.items()}
+        stats_out["counters"] = dict(c)
+        stats_out["compile_s"] = (native.BUILD_INFO["seconds"]
+                                  + build.BUILD_INFO.get("seconds", 0.0))
     return c

@@ -3,22 +3,35 @@
 software/extender.cpp:9-1065).
 
 Every live extension of a read batch contributes one tile per round to one
-device dispatch per tile shape (``ops/dispatch.extend_tiles_async``); the
-per-tile decode runs on the host through the native batched decoder.
-Per-extension behaviour — including the reference's quirks listed in
-darwin_tpu/pipeline/extend.py:9-30 — and the emission order are
-darwin_tpu's exactly.
+device dispatch per tile shape; the per-tile decode runs on the host
+through the native batched decoder.  Standard square tiles go out as
+speculative chains of ``spec_k`` tiles (``ops/dispatch.
+extend_tiles_spec_async``; darwin_tpu/pipeline/extend.py:622-764): the
+device predicts each next tile from the walk before it, and the host
+accepts level j only while the request it computes after the exact decode
+of level j-1 equals the device's, field for field, so the output never
+depends on the prediction.  Large tiles, and every tile at ``spec_k=1``,
+go one per round (``extend_tiles_async``).  Per-extension behaviour —
+including the reference's quirks listed in darwin_tpu/pipeline/extend.py:
+9-30 — and the emission order are darwin_tpu's exactly.
+
+Stage seconds (host wall, per call, into ``stage_seconds``; darwin_tpu's
+keys): ``ru_qbuild`` / ``ru_enqueue`` the read buffer's build and upload;
+per round ``extend_req`` (requests), ``extend_pack`` (request vectors),
+``extend_enqueue`` (the dispatches' enqueue), ``extend_dispatch`` (the
+three before, together), ``extend_fetch`` (resolve(): the one fetch and
+the expansion of tile 1), ``extend_decode`` (acceptance and decode of
+every level).
 
 ``ExtendAlignment``, ``_Ext``, ``alignment_score`` and
 ``reference_emission_order`` are jax-free copies of darwin_tpu's
-(darwin_tpu/pipeline/extend.py imports jax).  Not ported: darwin_tpu's
-speculative K-tile chains (``extend_tiles_spec_async``) — they reorder the
-same DP and traceback launches and give the same bytes.
+(darwin_tpu/pipeline/extend.py imports jax).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -26,8 +39,10 @@ import torch
 
 from darwin_tpu_torch import native
 from darwin_tpu_torch.genome import encode5
+from darwin_tpu_torch.ops.dispatch import extend_tiles_async, \
+    extend_tiles_spec_async
 from darwin_tpu_torch.pipeline.filter import ExtendLocation
-from darwin_tpu_torch.ops.dispatch import extend_tiles_async
+from darwin_tpu_torch.utils.stages import mark
 
 _CODE5 = np.full(256, 4, np.int8)
 for _i, _c in enumerate("ACGT"):
@@ -305,12 +320,17 @@ class ExtensionManager:
 
     The read batch is uploaded once as 1-byte ``encode5`` codes: per read
     and strand the ASCII sequence plus a 4 * tile_size 'N' margin, the
-    same layout darwin_tpu's mesh path uploads."""
+    same layout darwin_tpu's mesh path uploads.  ``spec_k``: tiles per
+    speculative chain (1: no speculation)."""
 
-    def __init__(self, store, reads, cfg, params, ref_codes_dev):
+    def __init__(self, store, reads, cfg, params, ref_codes_dev,
+                 spec_k: int = 1, stage_seconds: dict | None = None):
+        t0 = time.perf_counter()
         self.store = store
         self.cfg = cfg
         self.params = params
+        self.spec_k = spec_k
+        self.stage_seconds = stage_seconds
         self.bases = store.bases_with_margin(4 * cfg.large_tile_long)
         self.ref_codes_dev = ref_codes_dev
         margin = np.full(4 * cfg.tile_size, ord("N"), np.uint8)
@@ -323,8 +343,10 @@ class ExtensionManager:
                 pos += len(seq) + len(margin)
         self.q_code_start = offsets
         self.q_ascii = np.concatenate(bufs) if bufs else margin
+        t0 = mark(stage_seconds, "ru_qbuild", t0)
         self.q_codes_dev = torch.from_numpy(encode5(self.q_ascii)).to(
             ref_codes_dev.device)
+        mark(stage_seconds, "ru_enqueue", t0)
 
     def _decode_wave(self, exts, tiles, opsmat, nvec, cfg) -> dict:
         """Decode one wave of tiles — (batch row b, extension ei) pairs with
@@ -387,12 +409,19 @@ class ExtensionManager:
         max_lanes = cfg.extension_lanes
         live = list(range(min(len(exts), max_lanes)))
         pending = list(range(len(live), len(exts)))
+        T = cfg.tile_size
+        tacc = self.stage_seconds
+        cached_req = {}    # ei -> its request, computed at a refused level
         while live:
+            t_round = t0 = time.perf_counter()
             counters["num_extend_rounds"] += 1
             reqs = {}       # tile shape -> [(ei, request)]
             for ei in live:
-                r = exts[ei].request(cfg, counters)
+                r = cached_req.pop(ei, None)
+                if r is None:
+                    r = exts[ei].request(cfg, counters)
                 reqs.setdefault(r[5], []).append((ei, r))
+            t0 = mark(tacc, "extend_req", t0)
             # enqueue every tile-shape group, then resolve + decode in
             # order (each group's fetch and decode overlap the others'
             # device work)
@@ -410,17 +439,64 @@ class ExtensionManager:
                     q_start[b] = exts[ei].q_code_start + qs
                     q_size[b] = qsz
                     rev[b] = rv
-                rounds.append((items, extend_tiles_async(
-                    self.ref_codes_dev, self.q_codes_dev, r_start, r_size,
-                    q_start, q_size, rev, self.params, qt=qt, rt=rt,
-                    max_tb=2 * cfg.tile_size)))
+                spec = self.spec_k > 1 and (rt, qt) == (T, T)
+                if spec:
+                    lane = np.array([(exts[ei].ref_start_addr,
+                                      exts[ei].ref_len, exts[ei].q_code_start,
+                                      exts[ei].q_len) for ei, _ in items],
+                                    np.int64).reshape(B, 4).T
+                t0 = mark(tacc, "extend_pack", t0)
+                if spec:
+                    resolve = extend_tiles_spec_async(
+                        self.ref_codes_dev, self.q_codes_dev, r_start,
+                        r_size, q_start, q_size, rev, *lane, self.params,
+                        qt=qt, rt=rt, max_tb=2 * T,
+                        stop_thr=min(rt, qt) - cfg.tile_overlap,
+                        K=self.spec_k)
+                else:
+                    resolve = extend_tiles_async(
+                        self.ref_codes_dev, self.q_codes_dev, r_start,
+                        r_size, q_start, q_size, rev, self.params, qt=qt,
+                        rt=rt, max_tb=2 * T)
+                rounds.append((items, resolve, rev))
+                t0 = mark(tacc, "extend_enqueue", t0)
+            mark(tacc, "extend_dispatch", t_round)
             finished = []
-            for items, resolve in rounds:
+            for items, resolve, rev in rounds:
+                t0 = time.perf_counter()
                 res = resolve()
+                t0 = mark(tacc, "extend_fetch", t0)
                 tiles = [(b, ei) for b, (ei, _) in enumerate(items)]
                 done = self._decode_wave(exts, tiles, res["ops"],
                                          res["n_ops"], cfg)
+                alive = [(b, ei) for b, ei in tiles if not done[ei]]
                 finished += [ei for _, ei in tiles if done[ei]]
+                # the chain: level j is decoded for the lanes whose request
+                # after level j-1's exact decode equals the device's; a
+                # refused lane keeps that request for the next round
+                for j, sr in enumerate(res.get("spec_req", ())):
+                    accepted = []
+                    for b, ei in alive:
+                        r = exts[ei].request(cfg, counters)
+                        if (r[5] == (T, T) and r[4] == rev[b]
+                                and r[0] == sr[0][b] and r[1] == sr[1][b]
+                                and exts[ei].q_code_start + r[2] == sr[2][b]
+                                and r[3] == sr[3][b]):
+                            counters["num_spec_hits"] += 1
+                            accepted.append((b, ei))
+                        else:
+                            counters["num_spec_misses"] += 1
+                            cached_req[ei] = r
+                    if not accepted:
+                        break
+                    ops, n_ops = res["ops_spec"].take(
+                        j, [b for b, _ in accepted])
+                    done = self._decode_wave(
+                        exts, [(i, ei) for i, (_, ei) in enumerate(accepted)],
+                        ops, n_ops, cfg)
+                    alive = [(b, ei) for b, ei in accepted if not done[ei]]
+                    finished += [ei for _, ei in accepted if done[ei]]
+                mark(tacc, "extend_decode", t0)
             for ei in finished:
                 live.remove(ei)
                 if pending:

@@ -5,11 +5,16 @@ mesh path); chaining runs on the host per anchor.
 The ``dsoft_count`` pre-pass sizes the hit buffer exactly, and the anchor
 buffer is as wide as the hit buffer, so no batch ever overflows or retries
 (darwin_tpu grows capped buffers through retries to the same result).
+
+Stage seconds (darwin_tpu/seeding/seeder.py's keys, into the caller's
+``stage_seconds``): ``seed_dispatch`` the device pass and its count fetch,
+``seed_fetch`` the hit and anchor fetch, ``seed_chain`` host chaining.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import List
 
 import numpy as np
@@ -19,6 +24,8 @@ from darwin_tpu_torch import genome as G
 from darwin_tpu_torch.seeding import chain
 from darwin_tpu_torch.seeding.dsoft import dsoft_count, dsoft_device, \
     mq_cap_for
+from darwin_tpu_torch.utils.stages import mark
+from darwin_tpu_torch.utils.turns import fetch
 
 
 @dataclasses.dataclass
@@ -35,10 +42,13 @@ class Seeder:
         self.cfg = cfg
         self.max_occ = cfg.max_bucket_occupancy or table.kmer_max_occurence
 
-    def seed_batch(self, reads) -> SeedResult:
+    def seed_batch(self, reads, stage_seconds: dict | None = None
+                   ) -> SeedResult:
+        """stage_seconds: the caller's per-call timing dict, or None."""
         cfg = self.cfg
         if not reads:
             return SeedResult([], [], 0)
+        t0 = time.perf_counter()
         dev = self.table.positions.device
         lcap = (max(r.length for r in reads) + 15) // 16 * 16
         B = 2 * len(reads)
@@ -57,7 +67,7 @@ class Seeder:
                   overlap=cfg.do_overlap, max_occ=self.max_occ,
                   mq_cap=mq_cap)
         need = dsoft_count(codes2, lengths, self.table.sorted_hashes, **kw)
-        hit_cap = max(int(need.max()), 1)
+        hit_cap = max(int(fetch(need.max())), 1)
         res = dsoft_device(codes2, lengths, self.table.sorted_hashes,
                            self.table.positions,
                            threshold=cfg.dsoft_threshold,
@@ -65,13 +75,17 @@ class Seeder:
                            hit_cap=hit_cap, **kw)
         counts = torch.stack([res["n_hits"], res["n_anchors"],
                               res["n_queried_buckets"], res["n_capped"]])
-        counts = counts.cpu().numpy()
+        counts = fetch(counts)
+        t0 = mark(stage_seconds, "seed_dispatch", t0)
         mh = max(int(counts[0].max()), 1)
         ma = max(int(counts[1].max()), 1)
-        hits = torch.stack([res["hits_bin"][:, :mh], res["hits_off"][:, :mh],
-                            res["hits_pos"][:, :mh]]).cpu().numpy()
-        anc = torch.stack([res["anc_pos"][:, :ma], res["anc_off"][:, :ma],
-                           res["anc_bin"][:, :ma]]).cpu().numpy()
+        hits = fetch(torch.stack([res["hits_bin"][:, :mh],
+                                  res["hits_off"][:, :mh],
+                                  res["hits_pos"][:, :mh]]))
+        anc = fetch(torch.stack([res["anc_pos"][:, :ma],
+                                 res["anc_off"][:, :ma],
+                                 res["anc_bin"][:, :ma]]))
+        t0 = mark(stage_seconds, "seed_fetch", t0)
 
         strands = []
         for row in range(B):
@@ -79,5 +93,6 @@ class Seeder:
                 hits[0][row], hits[1][row], hits[2][row], int(counts[0][row]),
                 anc[0][row], anc[1][row], anc[2][row], int(counts[1][row]),
                 cfg.bin_size, cfg.do_overlap))
+        mark(stage_seconds, "seed_chain", t0)
         return SeedResult(strands[0::2], strands[1::2],
                           int(counts[2].sum()), int(counts[3].sum()))

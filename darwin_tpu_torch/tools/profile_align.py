@@ -1,29 +1,32 @@
 """Where the align phase's time goes, on one CUDA card.
 
     python -m darwin_tpu_torch.tools.profile_align [--out DIR] \
-        [--case ecoli|ecoli_generic|overlap]
+        [--case ecoli|ecoli_generic|overlap] [--spec-k K] [--pipeline-depth D]
 
 Writes one of ``chip_smoke.py``'s real-size cases (seed 0) — ``ecoli``:
 the E. coli K-12-size reference-guided case of phase 5
 (``utils.synth.ecoli_case``); ``ecoli_generic``: the same with the
 generic-scoring ``params.cfg`` of phase 6; ``overlap``: the reads-vs-reads
 case of phase 7 (``utils.synth.overlap_case``) — and aligns it ``RUNS``
-times in one process through ``pipeline.align.run`` on ``cuda``.  The
-first run is cold: it builds the kernels unless ``_build/`` already holds
-them.
+times in one process through ``pipeline.align.run`` on ``cuda``, at
+run()'s defaults or the given speculative chain depth and batches in
+flight.  The first run is cold: it builds the kernels unless ``_build/``
+already holds them.
 
-Per run it prints the align phase's seconds and reads/s and the host
-seconds of each stage.  Stages are timed by wrapping the port's functions
-from outside (see ``STAGES``); nothing in the pipeline is instrumented.
-They nest (``ext_native_decode`` is inside ``ext_decode_wave``, which is
-inside ``extend_total``) and a stage that waits on the card includes
-that wait.  ``gc_collections`` is the time Python's cyclic collector took
-during the run, inside whichever stage it fell (a full collection beside
-a run's data takes tens of milliseconds; one that falls between the two
-events of an extension dispatch is counted in its device time).  ``ext.
-device ms`` is ``ops.dispatch.EXT_STATS``'s: per extension dispatch, the
-time between an event recorded before the DP launch and one after the
-traceback launch.
+Per run it prints the align phase's seconds and reads/s, the speculative
+chains' hits, misses and extension rounds, and the host seconds of each
+stage as ``run(..., stats_out=...)`` reports them (``Aligner.
+stage_seconds``: ``read_upload``, ``seed``, ``filter``, ``extend``,
+``print`` and the stages nested in them — ``seed_*`` in ``seed``,
+``extend_*`` in ``extend``, ``ru_*`` in ``read_upload``).  With two read
+batches in flight the stages of both batches add up, so their sum exceeds
+the align phase's wall time.  ``gc_collections`` is the time Python's
+cyclic collector took during the run, inside whichever stage it fell (a
+full collection beside a run's data takes tens of milliseconds; one that
+falls between the two events of an extension dispatch is counted in its
+device time).  ``ext. device ms`` is ``ops.dispatch.EXT_STATS``'s: per
+extension dispatch, the time between an event recorded before its first DP
+launch and one after its last launch, on the dispatch's stream.
 
 The last run is under ``torch.profiler``: it prints the device self time
 of each kernel, their sum, and the card's busy share — the union of the
@@ -37,12 +40,10 @@ numbers printed.
 from __future__ import annotations
 
 import argparse
-import functools
 import gc
 import io
 import json
 import os
-import re
 import subprocess
 import sys
 import tempfile
@@ -51,39 +52,19 @@ from contextlib import contextmanager
 
 import torch
 
-from darwin_tpu_torch import native
 from darwin_tpu_torch.config import Config, load_config
 from darwin_tpu_torch.ops import dispatch
-from darwin_tpu_torch.pipeline import align, extend, printer
-from darwin_tpu_torch.seeding import seeder
+from darwin_tpu_torch.pipeline import align
 
-# (stage, owner, attribute): owner.attribute is wrapped by a timer
-STAGES = (
-    ("read_upload", extend.ExtensionManager, "__init__"),
-    ("seed_total", seeder.Seeder, "seed_batch"),
-    ("seed_chain_native", seeder.chain, "chain_anchors"),
-    ("filter_dispatch", align.Aligner, "_filter_dispatch"),
-    ("filter_collect", align.Aligner, "_filter_collect"),
-    ("extend_total", extend.ExtensionManager, "run"),
-    ("ext_enqueue", extend, "extend_tiles_async"),
-    ("ext_decode_wave", extend.ExtensionManager, "_decode_wave"),
-    ("ext_native_decode", native, "decode_ops_batch_native"),
-    ("print", printer, "sam_lines"),
-    ("print", printer, "mhap_lines"),
-)
-# the resolve() closures ext_enqueue returns: fetch + record expansion
-RESOLVE_STAGE = "ext_resolve_fetch_expand"
 GC_STAGE = "gc_collections"
 RUNS = 3          # cold, warm, and warm under the profiler
 
 
 @contextmanager
-def stage_timers():
-    """Wrap every STAGES function with a host timer for the duration of
-    the block; yields {stage: seconds}, filled as the block runs."""
-    acc = {name: 0.0 for name, _, _ in STAGES}
-    acc[RESOLVE_STAGE] = 0.0
-    acc[GC_STAGE] = 0.0
+def gc_timer():
+    """Time Python's cyclic collections for the duration of the block;
+    yields {GC_STAGE: seconds}, filled as the block runs."""
+    acc = {GC_STAGE: 0.0}
     began = [0.0]
 
     def on_gc(phase, info):
@@ -92,31 +73,25 @@ def stage_timers():
         else:
             acc[GC_STAGE] += time.perf_counter() - began[0]
 
-    def timed(name, fn):
-        @functools.wraps(fn)
-        def wrapper(*args, **kwargs):
-            t0 = time.perf_counter()
-            try:
-                out = fn(*args, **kwargs)
-            finally:
-                acc[name] += time.perf_counter() - t0
-            if name == "ext_enqueue":
-                out = timed(RESOLVE_STAGE, out)
-            return out
-        return wrapper
-
-    saved = []
     gc.callbacks.append(on_gc)
     try:
-        for name, owner, attr in STAGES:
-            fn = getattr(owner, attr)
-            saved.append((owner, attr, fn))
-            setattr(owner, attr, timed(name, fn))
         yield acc
     finally:
         gc.callbacks.remove(on_gc)
-        for owner, attr, fn in reversed(saved):
-            setattr(owner, attr, fn)
+
+
+def run_row(stats, gc_acc, n_reads) -> dict:
+    """One run's JSON row from ``run``'s stats_out and the collector's
+    time."""
+    c = stats["counters"]
+    stages = dict(stats["stage_seconds"], **gc_acc)
+    return {"align_s": stats["align_seconds"],
+            "reads_per_s": n_reads / stats["align_seconds"],
+            "ext_device_ms": dispatch.EXT_STATS["device_ms"],
+            "spec_hits": c["num_spec_hits"],
+            "spec_misses": c["num_spec_misses"],
+            "extend_rounds": c["num_extend_rounds"],
+            "stages_s": dict(sorted(stages.items(), key=lambda kv: -kv[1]))}
 
 
 def _busy_ms(events) -> float:
@@ -136,18 +111,18 @@ def _busy_ms(events) -> float:
     return busy / 1000
 
 
-def _align_s(err_text: str) -> float:
-    m = re.search(r"Time elapsed \(aligning reads\): (\d+) msec", err_text)
-    return int(m.group(1)) / 1000
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="directory for profile_table.txt")
     ap.add_argument("--case", default="ecoli",
                     choices=("ecoli", "ecoli_generic", "overlap"))
+    ap.add_argument("--spec-k", type=int, default=dispatch.SPEC_K,
+                    help="tiles per speculative chain (run()'s spec_k)")
+    ap.add_argument("--pipeline-depth", type=int, default=2,
+                    help="read batches in flight (run()'s pipeline_depth)")
     args = ap.parse_args(argv)
+    path = dict(spec_k=args.spec_k, pipeline_depth=args.pipeline_depth)
     if not torch.cuda.is_available():
         print("profile_align: no CUDA device", file=sys.stderr)
         return 2
@@ -158,7 +133,9 @@ def main(argv=None) -> int:
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     from darwin_tpu_torch.utils import synth
-    summary = {"card": smi, "case": args.case, "runs": []}
+    summary = {"card": smi, "case": args.case, **path, "runs": []}
+    print(f"case {args.case}, spec_k={args.spec_k}, pipeline_depth="
+          f"{args.pipeline_depth}", flush=True)
     overlap = args.case == "overlap"
     with tempfile.TemporaryDirectory() as tmp:
         ref, reads = f"{tmp}/ref.fa", f"{tmp}/reads.fa"
@@ -175,27 +152,29 @@ def main(argv=None) -> int:
         for i in range(RUNS):
             last = i == RUNS - 1
             out, err = io.StringIO(), io.StringIO()
+            stats = {}
             dispatch.reset_ext_stats()
-            with stage_timers() as acc:
+            with gc_timer() as gc_acc:
                 if last:
                     with profile(activities=[ProfilerActivity.CPU,
                                              ProfilerActivity.CUDA]) as prof:
                         t0 = time.perf_counter()
                         align.run(ref, reads, overlap, cfg=cfg, out=out,
-                                  err=err, device="cuda")
+                                  err=err, device="cuda", stats_out=stats,
+                                  **path)
                         torch.cuda.synchronize()
                         wall = time.perf_counter() - t0
                 else:
                     align.run(ref, reads, overlap, cfg=cfg, out=out,
-                              err=err, device="cuda")
-            align_s = _align_s(err.getvalue())
-            row = {"align_s": align_s, "reads_per_s": len(truth) / align_s,
-                   "ext_device_ms": dispatch.EXT_STATS["device_ms"],
-                   "stages_s": dict(sorted(acc.items(),
-                                           key=lambda kv: -kv[1]))}
+                              err=err, device="cuda", stats_out=stats,
+                              **path)
+            row = run_row(stats, gc_acc, len(truth))
             print(f"run {i}{' (profiled)' if last else ''}: align "
-                  f"{align_s:.3f} s -> {row['reads_per_s']:.1f} reads/s, "
-                  f"ext. device ms {row['ext_device_ms']:.1f}", flush=True)
+                  f"{row['align_s']:.3f} s -> {row['reads_per_s']:.1f} "
+                  f"reads/s, ext. device ms {row['ext_device_ms']:.1f}; "
+                  f"spec hits {row['spec_hits']}, misses "
+                  f"{row['spec_misses']}, extend rounds "
+                  f"{row['extend_rounds']}", flush=True)
             print("   stages (host s): " + ", ".join(
                 f"{k}={v:.3f}" for k, v in row["stages_s"].items()),
                 flush=True)

@@ -4,7 +4,10 @@ printer, and ``run(reads, reads, True)`` end to end.  Tolerance: none —
 arrays are equal and MHAP bytes and the counter block are identical.
 
 The reads cross to the port as numpy arrays (names + ASCII sequences),
-never as darwin_tpu objects."""
+never as darwin_tpu objects.  The port runs its non-speculative path, one
+batch at a time (``spec_k=1, pipeline_depth=1``): the plain twins on the
+CPU pay for every speculative level, and test_torch_spec.py holds the
+defaults to darwin_tpu."""
 
 import io
 
@@ -43,6 +46,10 @@ def _cfgs(**kw):
             setattr(cfg, k, v)
         out.append(cfg)
     return out
+
+
+# the non-speculative path, one batch at a time
+K1 = {"spec_k": 1, "pipeline_depth": 1}
 
 
 def _block(err: str):
@@ -201,7 +208,7 @@ def test_overlap_run_matches_darwin_tpu(world):
     _, cfg = _cfgs()
     out, err = io.StringIO(), io.StringIO()
     run(str(tmp / "reads.fa"), str(tmp / "reads.fa"), True, cfg=cfg,
-        out=out, err=err, device="cpu")
+        out=out, err=err, device="cpu", **K1)
     recs = [ln.split() for ln in mhap.splitlines() if " " in ln]
     assert len(recs) >= 20 and not mhap.startswith("@")
     assert all(r[0] != r[1] for r in recs)
@@ -219,7 +226,8 @@ def test_overlap_cli_matches_darwin_tpu(world, capsys, monkeypatch):
         "[DSOFT_params]\nseed_size = 11\n"
         "[GACT_first_tile]\nmin_overlap = 500\n")
     try:
-        assert cli.main(["reads.fa", "reads.fa", "1", "--device=cpu"]) == 0
+        assert cli.main(["reads.fa", "reads.fa", "1", "--device=cpu"],
+                        **K1) == 0
     finally:
         (tmp / "params.cfg").unlink()
     got = capsys.readouterr()
@@ -241,7 +249,7 @@ def test_strand_dependent_recall_is_darwin_tpu_s_too(tmp_path):
     reads = str(tmp_path / "reads.fa")
     res = []
     for runner, cfg, kw in zip((jax_run, run), _cfgs(num_seeds=200),
-                               ({}, {"device": "cpu"})):
+                               ({}, {"device": "cpu", **K1})):
         out, err = io.StringIO(), io.StringIO()
         runner(reads, reads, True, cfg=cfg, out=out, err=err, **kw)
         res.append((out.getvalue(), _block(err.getvalue())))

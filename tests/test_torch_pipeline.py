@@ -2,8 +2,13 @@
 same SAM bytes and the same 7-line counter block as
 darwin_tpu.pipeline.align.run, on a 200 kb two-chromosome genome with an
 N run, reads on both strands from 800 bp to 5 kb, and one read across a
-1.2 kb deletion (large-tile escalation); plus the CLI, and the same run
-with a generic-scoring params.cfg (gap opens cheaper than gap extends)."""
+1.2 kb deletion (large-tile escalation), at run()'s defaults (speculative
+chains of 12 tiles) and with three read batches, two in flight; plus the
+CLI, and the same run with a generic-scoring params.cfg (gap opens cheaper
+than gap extends).  The CLI cases run the non-speculative path, one batch
+at a time (``spec_k=1, pipeline_depth=1``): the plain twins on the CPU pay
+for every speculative level, and test_torch_spec.py covers the defaults'
+combinations."""
 
 import io
 
@@ -30,6 +35,10 @@ def _cfg(cls=Config):
 GENERIC_CFG = ("[GACT_scoring]\ngap_open = -1\ngap_extend = -3\n"
                "long_gap_open = -2\nlong_gap_extend = -6\n"
                "[DSOFT_params]\nseed_size = 10\n")
+
+
+# the non-speculative path, one batch at a time
+K1 = {"spec_k": 1, "pipeline_depth": 1}
 
 
 def _block(err: str):
@@ -83,7 +92,8 @@ def test_cli_matches_darwin_tpu(world, capsys, monkeypatch):
     monkeypatch.chdir(tmp)
     (tmp / "params.cfg").write_text("[DSOFT_params]\nseed_size = 10\n")
     try:
-        assert cli.main(["ref.fa", "reads.fa", "0", "--device=cpu"]) == 0
+        assert cli.main(["ref.fa", "reads.fa", "0", "--device=cpu"],
+                        **K1) == 0
     finally:
         (tmp / "params.cfg").unlink()
     got = capsys.readouterr()
@@ -104,7 +114,8 @@ def test_generic_scoring_cli_matches_darwin_tpu(world, capsys, monkeypatch):
         assert jcfg.gap_open > jcfg.gap_extend
         out, err = io.StringIO(), io.StringIO()
         jax_run("ref.fa", "reads.fa", False, cfg=jcfg, out=out, err=err)
-        assert cli.main(["ref.fa", "reads.fa", "0", "--device=cpu"]) == 0
+        assert cli.main(["ref.fa", "reads.fa", "0", "--device=cpu"],
+                        **K1) == 0
     finally:
         (tmp / "params.cfg").unlink()
     got = capsys.readouterr()
@@ -127,29 +138,42 @@ def test_cli_refuses_what_it_cannot_do(world, capsys):
 
 
 def test_profile_stage_timers_cover_the_path(world):
-    """tools/profile_align's stage timers see every stage of the main path,
-    change no output, and put every wrapped function back."""
+    """run()'s stage telemetry (what tools/profile_align reads) sees every
+    stage of the main path with three read batches, two of them in flight
+    on speculative chains of 4, and changes no output; the first batch's
+    stages and the rest's add up to the totals; the collector's timer puts
+    gc.callbacks back."""
     from darwin_tpu_torch.tools import profile_align as pa
     tmp, sam, block = world
     import gc
-    originals = [getattr(owner, attr) for _, owner, attr in pa.STAGES]
     callbacks = list(gc.callbacks)
     out, err = io.StringIO(), io.StringIO()
-    with pa.stage_timers() as acc:
+    stats = {}
+    with pa.gc_timer() as gc_acc:
         run(str(tmp / "ref.fa"), str(tmp / "reads.fa"), False, cfg=_cfg(),
-            out=out, err=err, device="cpu")
+            out=out, err=err, device="cpu", reads_per_batch=5,
+            pipeline_depth=2, spec_k=4, stats_out=stats)
     assert out.getvalue() == sam
     assert _block(err.getvalue()) == block
-    stages = {s for s, _, _ in pa.STAGES} | {pa.RESOLVE_STAGE}
-    assert set(acc) == stages | {pa.GC_STAGE}
-    assert all(acc[s] > 0 for s in stages), acc
-    # the cyclic collector need not run at this size
-    assert acc[pa.GC_STAGE] >= 0
     assert gc.callbacks == callbacks
-    assert (acc["ext_native_decode"] <= acc["ext_decode_wave"]
-            <= acc["extend_total"])
-    assert [getattr(o, a) for _, o, a in pa.STAGES] == originals
-    assert pa._align_s(err.getvalue()) >= 0
+    total = stats["stage_seconds"]
+    assert set(total) == {
+        "read_upload", "ru_qbuild", "ru_enqueue", "seed", "seed_dispatch",
+        "seed_fetch", "seed_chain", "filter", "extend", "extend_req",
+        "extend_pack", "extend_enqueue", "extend_dispatch", "extend_fetch",
+        "extend_decode", "print"}
+    assert all(v > 0 for v in total.values()), total
+    for k, v in total.items():
+        assert stats["stage_seconds_cold"][k] + \
+            stats["stage_seconds_warm"][k] == pytest.approx(v, abs=1e-9)
+    c = stats["counters"]
+    assert c["num_reads"] == 13 and c["num_spec_hits"] > 0
+    assert gc_acc[pa.GC_STAGE] >= 0   # the collector need not run here
+    row = pa.run_row(stats, gc_acc, 13)
+    assert (row["spec_hits"], row["spec_misses"], row["extend_rounds"]) == (
+        c["num_spec_hits"], c["num_spec_misses"], c["num_extend_rounds"])
+    assert list(row["stages_s"].values()) == sorted(
+        row["stages_s"].values(), reverse=True)
 
 
 def test_profile_busy_time_is_the_union_of_device_intervals():
