@@ -14,8 +14,9 @@ Phases (each prints its lines; any failure raises, so the exit is nonzero):
      paths' tile geometries, with the default, a generic and a mixed
      scoring, at odd geometries with max-cell and start-to-end tiles mixed,
      the walker also on random trace words and on runs longer than its
-     look-ahead and than max_tb, the next-tile kernel on the walker's
-     records and on synthetic ones, and the op-rate probe in its five
+     look-ahead and than max_tb, the next-tile kernel (request, gathered
+     tiles and sizes) on the walker's records, on synthetic ones and at
+     odd record heights, and the op-rate probe in its five
      modes: exact integer equality; each kernel's time per call of its
      wrapper (calls enqueued back to back between two events) and its
      device self time under torch.profiler beside its bound, the DP's rows
@@ -91,7 +92,11 @@ KERNELS = {
 # multiply-add, on fp32 lanes, so the peak taken for them is all 128 lanes:
 # half that figure, 33.5 T/s.  It is above every rate the op-rate probe
 # sustains (16.5 T instructions/s on a max/add chain, 23.2 T/s on
-# compare + select + add), so no bound here is looser than the card.
+# compare + select + add), so no bound here is looser than the card.  The
+# probe's own rows take the larger of this and its ALU-only operations
+# (min / max, logic) over the 64 int32 lanes (tools/vpu_probe.mode_bounds);
+# the DP's maxes pair with its adds into DPX instructions, so it keeps
+# this one.
 PEAK_BYTES_S = 3.35e12
 PEAK_INT32_OPS_S = 67e12 / 2
 
@@ -256,10 +261,14 @@ def _generic(params, go, ge, goL, geL):
                            long_gap_extend=geL)
 
 
-def _next_inputs(rng, B, dev):
+def _next_inputs(rng, B, dev, n_ref, n_q):
     """(lane (5, B), curr (2, B)) int64 on the card: both orientations,
     positions anywhere, at 0, near and at the chromosome's and the read's
-    far ends, so that every clamp of the next-tile rule fires."""
+    far ends, so that every clamp of the next-tile rule fires; chromosomes
+    and reads start anywhere in code buffers of n_ref and n_q codes, some
+    near their ends, and lane 0 is a right extension at the start of a
+    chromosome shorter than a tile at the buffer's start, so that the
+    gather's clamps fire below 0 and past both buffers."""
     rev = rng.integers(0, 2, B)
     clen = rng.integers(192, 6000, B)
     qlen = rng.integers(192, 11_000, B)
@@ -269,9 +278,10 @@ def _next_inputs(rng, B, dev):
         return np.select([pick == 0, pick == 1, pick == 2],
                          [rng.integers(0, n), np.zeros(B, np.int64),
                           np.maximum(n - rng.integers(1, 500, B), 0)], n)
-    lane = np.stack([rev, rng.integers(0, 1 << 31, B), clen,
-                     rng.integers(0, 1 << 24, B), qlen])
+    lane = np.stack([rev, rng.integers(0, n_ref, B), clen,
+                     rng.integers(0, n_q, B), qlen])
     curr = np.stack([at(clen), at(qlen)])
+    lane[:3, 0], curr[0, 0] = (1, 0, 100), 10
     return (torch.from_numpy(lane.astype(np.int64)).to(dev),
             torch.from_numpy(curr.astype(np.int64)).to(dev))
 
@@ -297,11 +307,13 @@ def _synthetic_records(rng, RT):
 
 
 def _check_next(rng, kstats, params):
-    """gact_next against spec_next on the card: the walker's records of
-    512 ragged 384x384 start-to-end tiles (the main path's chain levels)
-    and 64 synthetic walks, stop_thr 0, 1, 320 (the main path's: 384 - the
-    tile overlap) and 384, both orientations, all clamps; exact.  Then its
-    time on the walker's records at stop_thr 320."""
+    """gact_next against its twin (spec_next_tiles) on the card: the
+    walker's records of 512 ragged 384x384 start-to-end tiles (the main
+    path's chain levels) and 64 synthetic walks, stop_thr 0, 1, 320 (the
+    main path's: 384 - the tile overlap) and 384, both orientations, all
+    clamps; then records shorter than a step and longer than a staged
+    chunk.  Requests, both gathered tiles and the sizes, exact as whole
+    arrays.  Then its time on the walker's records at stop_thr 320."""
     from darwin_tpu_torch.ops import gact, gact_cuda
     dev = torch.device("cuda", 0)
     T, B = 384, 512
@@ -313,40 +325,74 @@ def _check_next(rng, kstats, params):
     walked = gact_cuda.traceback_tiles(res["trace"], ql - 1, rl - 1,
                                        2 * T)[0]
     synth = torch.from_numpy(_synthetic_records(rng, T)).to(dev)
+    # code buffers of a genome's and a read batch's size
+    ref = torch.from_numpy(rng.integers(0, 5, 4_641_652).astype(np.uint8)
+                           ).to(dev)
+    query = torch.from_numpy(rng.integers(0, 5, 1_500_000).astype(np.uint8)
+                             ).to(dev)
     st = kstats["gact_next"]
+
+    def exact(rec, lane, curr, side, thr, what):
+        k = gact_cuda.next_tiles(rec, lane, curr, ref, query, side, thr,
+                                 2 * side)
+        p = gact.spec_next_tiles(rec, lane, curr, ref, query, side, thr,
+                                 2 * side)
+        torch.cuda.synchronize()
+        names = ("requests", "query tiles", "ref tiles", "sizes")
+        for name, a, b in zip(names, k, p):
+            check(a.shape == b.shape and a.dtype == b.dtype,
+                  f"gact_next {name} on {what}: {a.shape} {a.dtype} vs "
+                  f"{b.shape} {b.dtype}")
+            err = int((a.long() - b.long()).abs().max())
+            check(err == 0, f"gact_next != plain on {what}, stop_thr={thr}: "
+                  f"{name} max |diff| {err}")
+            st["max_abs_err"] = max(st.get("max_abs_err", 0), err)
+        return k
+
     for what, rec in (("walker records, B=512", walked),
                       ("synthetic records, B=64", synth)):
-        lane, curr = _next_inputs(rng, rec.shape[1], dev)
+        lane, curr = _next_inputs(rng, rec.shape[1], dev, len(ref),
+                                  len(query))
         for thr in (0, 1, 320, 384):
-            k = gact_cuda.next_tiles(rec, lane, curr, T, thr, 2 * T)
-            p = gact.spec_next(rec, lane, curr, T, thr, 2 * T)
-            torch.cuda.synchronize()
-            err = int((k - p).abs().max())
-            check(err == 0, f"gact_next != plain on {what}, stop_thr={thr}: "
-                  f"max |diff| {err}")
-            st["max_abs_err"] = max(st.get("max_abs_err", 0), err)
-        clamped = int((k[1] < T).sum() + (k[3] < T).sum())
+            k = exact(rec, lane, curr, T, thr, what)
+        clamped = int((k[0][1] < T).sum() + (k[0][3] < T).sum())
         say(3, f"gact_next {what}, stop_thr in (0, 1, 320, 384), both "
-               f"orientations: exact ({clamped} tile sides clamped at a "
-               f"sequence end at stop_thr 384)")
-    lane, curr = _next_inputs(rng, B, dev)
+               f"orientations: requests, query and ref tiles, sizes exact "
+               f"({clamped} tile sides clamped at a sequence end at "
+               f"stop_thr 384)")
+    for RT, nb in ((45, 37), (1000, 100)):
+        n_ins = np.where(rng.random((RT, nb)) < 0.02,
+                         rng.integers(0, 10, (RT, nb)), 0)
+        rec = torch.from_numpy((n_ins | rng.integers(0, 4, (RT, nb)) << 14)
+                               .astype(np.int32)).to(dev)
+        lane, curr = _next_inputs(rng, nb, dev, len(ref), len(query))
+        for thr in (0, RT - 64, 2 * RT):
+            exact(rec, lane, curr, RT, thr, f"random records {RT}x{nb}")
+    say(3, "gact_next random records 45x37 and 1000x100 (tile side = rows; "
+           "three staged chunks at 1000), three stop_thr each: exact")
+
+    lane, curr = _next_inputs(rng, B, dev, len(ref), len(query))
 
     def kern():
-        return gact_cuda.next_tiles(walked, lane, curr, T, 320, 2 * T)
+        return gact_cuda.next_tiles(walked, lane, curr, ref, query, T, 320,
+                                    2 * T)
 
     def plain():
-        return gact.spec_next(walked, lane, curr, T, 320, 2 * T)
+        return gact.spec_next_tiles(walked, lane, curr, ref, query, T, 320,
+                                    2 * T)
     self_ms = _self_ms({"next": (kern, "gact_next_kernel")}, 20)["next"]
     kms = _time_ms(kern, 20)
     pms = _time_ms(plain, 1)
     # what the function must move: the records and the lane inputs read
-    # once, the (8, B) int64 result written once
-    n_bytes = walked.numel() * 4 + (5 + 2 + 8) * B * 8
+    # once, the codes of both tiles read once, the (8, B) int64 requests,
+    # both (B, T) tiles and the (4, B) int32 sizes written once
+    n_bytes = (walked.numel() * 4 + (5 + 2) * B * 8 + 2 * B * T
+               + 8 * B * 8 + 2 * B * T + 4 * B * 4)
     bms, bby = bound(n_bytes, 0)
-    say(3, f"gact_next walker records 384x512, stop_thr 320: kernel "
-           f"{kms:.4f} ms per call of 20 enqueued back to back, "
-           f"{self_ms:.4f} ms device self time, plain {pms:.2f} ms, bound "
-           f"{bms:.5f} ms by {bby}")
+    say(3, f"gact_next walker records 384x512, stop_thr 320, with the next "
+           f"level's gather: kernel {kms:.4f} ms per call of 20 enqueued "
+           f"back to back, {self_ms:.4f} ms device self time, plain "
+           f"{pms:.2f} ms, bound {bms:.5f} ms by {bby}")
     st.update(ms=kms, plain_ms=pms, bound_ms=bms, bound_by=bby)
 
 
@@ -648,6 +694,9 @@ def phase_kernels(seed, kstats):
                          .astype(np.int32)).to(dev)
     programs = 8192
     st = kstats["int_probe"]
+    # each mode's bound by its operations and the pipes that issue them,
+    # with the compiled chain's split beside it (vpu_probe.mode_bounds)
+    pipe_bounds = vpu_probe.mode_bounds(programs, sass)
     for mode in vpu_probe.MODES:
         k = vpu_probe.probe_block(x, mode, programs)
         p = vpu_probe.probe_plain(x, mode)
@@ -657,16 +706,29 @@ def phase_kernels(seed, kstats):
         kms = _time_ms(lambda: vpu_probe.probe_block(x, mode, programs), 5)
         pms = _time_ms(lambda: vpu_probe.probe_plain(x, mode), 1)
         n_ops = x.numel() * programs * 2 * vpu_probe.REPS
-        bms, bby = bound(2 * x.numel() * 4 * programs, n_ops)
+        pb = pipe_bounds[mode]
+        cp = pb["compiled"]
+        bms, bby = bound(2 * x.numel() * 4 * programs, 0)
+        if pb["bound_ms"] > bms:
+            bms, bby = pb["bound_ms"], "operations"
         say(3, f"int_probe mode {mode} programs={programs}: exact; kernel "
                f"{kms:.3f} ms = {n_ops / kms / 1e9:.3f} Tops (2 ops per "
-               f"rep), plain (one program) {pms:.2f} ms, bound {bms:.3f} "
-               f"ms by {bby}")
+               f"rep), plain (one program) {pms:.2f} ms, bound {bms:.4f} "
+               f"ms by {bby} ({pb['ops'][0]} ALU-only of {pb['ops'][1]} "
+               f"operations per element, set by {pb['bound_pipe']}) = "
+               f"{bms / kms:.3f} of the time; the compiled chain's floor "
+               f"{cp['floor_ms']:.4f} ms by {cp['floor_pipe']} = "
+               f"{cp['floor_ms'] / kms:.3f} (instructions per thread "
+               f"{cp['pipes']}, others {cp['other']})")
         st["max_abs_err"] = max(st.get("max_abs_err", 0), err)
         if mode == "max":
             # every program computes the same block, so the twin's one
             # pass is the same function of the same input
             st.update(ms=kms, plain_ms=pms, bound_ms=bms, bound_by=bby)
+            self_ms = _self_ms({"probe": (
+                lambda: vpu_probe.probe_block(x, mode, programs),
+                "int_probe_kernel<0>")}, 5)["probe"]
+            say(3, f"int_probe mode max: {self_ms:.3f} ms device self time")
     for fn, info in sorted(sass.items()):
         m = re.search(r"int_probe_kernelILi(\d)E", fn)
         if m:
@@ -982,7 +1044,12 @@ def phase_probe(kstats, smi):
         say(8, f"int32 op rate, mode {mode}: {r['tops']:.3f} Tops (2 ops "
                f"per rep); {r['ms']:.3f} / {r['ms_median']:.3f} / "
                f"{r['ms_max']:.3f} ms per launch (min / median / max of 3 "
-               f"windows of {res['launches_per_window']}) [{smi}]")
+               f"windows of {res['launches_per_window']}); bound "
+               f"{r['bound_ms']:.4f} ms by {r['bound_pipe']}, share "
+               f"{r['share']:.3f}; the compiled chain's floor "
+               f"{r['compiled']['floor_ms']:.4f} ms by "
+               f"{r['compiled']['floor_pipe']}, share "
+               f"{r['compiled']['share']:.3f} [{smi}]")
     _took(kstats, launches, ["int_probe"])
 
 

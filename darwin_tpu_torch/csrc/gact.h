@@ -46,14 +46,20 @@ int gact_tb(const uint8_t* trace, const int32_t* start_q,
             int32_t* rec, int32_t* q_steps, int32_t* r_steps, void* stream);
 
 // The next tile of a speculative chain (gact_next.cu), B, RT, T >= 1,
-// max_ops >= 0.  rec: (RT, B) int32 walker records; lane: (5, B) int64
-// rows rev, chrom_start, chrom_len, q_buf_start, q_len; curr: (2, B)
-// int64 rows curr_ref, curr_q (chromosome- and read-relative).  out:
-// (8, B) int64 rows r_start, r_size, q_start, q_size of the next tile,
-// the new curr_ref, curr_q, and the advance dr, dq.
+// 0 <= max_ops <= 2^30, n_ref, n_query >= 1.  rec: (RT, B) int32 walker
+// records; lane: (5, B) int64 rows rev, chrom_start, chrom_len,
+// q_buf_start, q_len; curr: (2, B) int64 rows curr_ref, curr_q
+// (chromosome- and read-relative); ref / query: the code buffers, n_ref /
+// n_query codes.  out: (8, B) int64 rows r_start, r_size, q_start, q_size
+// of the next tile, the new curr_ref, curr_q, and the advance dr, dq;
+// qtile / rtile: (B, T) uint8, the next tile's codes (reversed for a right
+// extension, indices clamped into the buffers); sizes: (4, B) int32 rows
+// q_size, r_size, q_size - 1, r_size - 1.
 int gact_next(const int32_t* rec, const int64_t* lane, const int64_t* curr,
-              int B, int RT, int T, int stop_thr, int max_ops, int64_t* out,
-              void* stream);
+              const uint8_t* ref, int64_t n_ref, const uint8_t* query,
+              int64_t n_query, int B, int RT, int T, int stop_thr,
+              int max_ops, int64_t* out, uint8_t* qtile, uint8_t* rtile,
+              int32_t* sizes, void* stream);
 
 #ifdef __cplusplus
 }

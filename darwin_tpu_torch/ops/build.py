@@ -88,7 +88,7 @@ def _build(path: str) -> dict:
 
 
 def _bind(lib) -> None:
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.gact_dp.argtypes = [p, p, p, p, p, i, i, i, p, i, i, i, i,
                             p, p, p, p, p]
     lib.gact_dp.restype = i
@@ -96,7 +96,8 @@ def _bind(lib) -> None:
     lib.gact_dp_plan.restype = i
     lib.gact_tb.argtypes = [p, p, p, i, i, i, i, p, p, p, p]
     lib.gact_tb.restype = i
-    lib.gact_next.argtypes = [p, p, p, i, i, i, i, i, p, p]
+    lib.gact_next.argtypes = [p, p, p, p, i64, p, i64, i, i, i, i, i, p, p,
+                              p, p, p]
     lib.gact_next.restype = i
     lib.int_probe.argtypes = [p, p, i, i, p]
     lib.int_probe.restype = i

@@ -1,6 +1,7 @@
 """Device dispatchers: tile gather from resident code buffers + tile DP
 (+ traceback).  Counterpart of ``darwin_tpu/ops/dispatch.py``'s
-``gather_tiles``, ``first_tile_scores``, ``extend_tiles_async`` and
+``gather_tiles`` (``ops/gact.gather_tiles``, part of the ``gact_next``
+kernel's twin), ``first_tile_scores``, ``extend_tiles_async`` and
 ``extend_tiles_spec_async`` (speculative K-tile chains).
 
 The genome and the read batch live on the device as 1-byte 5-letter codes;
@@ -27,6 +28,7 @@ import numpy as np
 import torch
 
 from darwin_tpu_torch.ops import gact
+from darwin_tpu_torch.ops.gact import gather_tiles, tile_sizes
 from darwin_tpu_torch.ops.gact_cuda import dp_tiles, next_tiles, \
     traceback_tiles
 from darwin_tpu_torch.utils.turns import fetch
@@ -64,23 +66,6 @@ def _count_dispatch(tiles, spec_tiles, cells, events):
         EXT_STATS["spec_tiles"] += spec_tiles
         EXT_STATS["cells"] += cells
         EXT_STATS["device_ms"] += ms
-
-
-def gather_tiles(ref_codes, query_codes, r_start, r_size, q_start, q_size,
-                 rev, qt: int, rt: int):
-    """(B, qt) query and (B, rt) ref tiles from the code buffers.
-    r_start/r_size/q_start/q_size: (B,) int64 device tensors; rev (B,) bool
-    gathers both tiles reversed (the right-extension orientation)."""
-    dev = ref_codes.device
-    i = torch.arange(rt, dtype=torch.int64, device=dev)[None, :]
-    ridx = torch.where(rev[:, None], (r_start + r_size - 1)[:, None] - i,
-                       r_start[:, None] + i)
-    j = torch.arange(qt, dtype=torch.int64, device=dev)[None, :]
-    qidx = torch.where(rev[:, None], (q_start + q_size - 1)[:, None] - j,
-                       q_start[:, None] + j)
-    rtile = ref_codes[ridx.clamp_(0, ref_codes.shape[0] - 1)]
-    qtile = query_codes[qidx.clamp_(0, query_codes.shape[0] - 1)]
-    return qtile, rtile
 
 
 def _upload(device, *rows):
@@ -125,8 +110,8 @@ def extend_tiles_async(ref_codes, query_codes, r_start, r_size, q_start,
     se = torch.ones(B, dtype=torch.bool, device=dev)
     if events:
         events[0].record()
-    rec, stats = _extend_tile(qtile, rtile, req[3], req[1], se, params,
-                              max_tb)
+    rec, stats = _extend_tile(qtile, rtile, tile_sizes(req[3], req[1]), se,
+                              params, max_tb)
     if events:
         events[1].record()
     packed = torch.cat([rec, torch.stack(stats)])
@@ -149,16 +134,14 @@ def _events(dev):
             torch.cuda.Event(enable_timing=True))
 
 
-def _extend_tile(qtile, rtile, q_size, r_size, se, params, max_tb):
-    """One level's DP (with trace) and walk: the (RT, B) records and the
-    five (B,) int32 stats q_steps, r_steps, score, query_max_pos,
-    ref_max_pos."""
-    q_size32 = q_size.to(torch.int32)
-    r_size32 = r_size.to(torch.int32)
-    res = dp_tiles(qtile, rtile, q_size32, r_size32, se, params,
+def _extend_tile(qtile, rtile, sizes, se, params, max_tb):
+    """One level's DP (with trace) and walk, ``sizes`` the level's
+    ``tile_sizes``: the (RT, B) records and the five (B,) int32 stats
+    q_steps, r_steps, score, query_max_pos, ref_max_pos."""
+    res = dp_tiles(qtile, rtile, sizes[0], sizes[1], se, params,
                    with_trace=True)
-    rec, q_steps, r_steps = traceback_tiles(
-        res["trace"], q_size32 - 1, r_size32 - 1, max_tb)
+    rec, q_steps, r_steps = traceback_tiles(res["trace"], sizes[2],
+                                            sizes[3], max_tb)
     return rec, (q_steps, r_steps, res["score"], res["query_max_pos"],
                  res["ref_max_pos"])
 
@@ -194,10 +177,13 @@ def extend_tiles_spec_async(ref_codes, query_codes, r_start, r_size,
     only (darwin_tpu/ops/dispatch.py:478-578).  Tile 1 is the request;
     each later level's request is computed on the device by ``next_tiles``
     from the walk of the level before, as the host would compute it if the
-    extension took that walk's cutoff advance and did not terminate.  All
-    K levels (gather, DP with trace, walk, next tile) are enqueued with no
-    host sync; resolve() fetches the K record matrices, tile 1's stats and
-    the K-1 speculative requests in one transfer.
+    extension took that walk's cutoff advance and did not terminate.  Tile
+    1 is gathered here; each later level's tiles and sizes come from the
+    same ``next_tiles`` launch as its request, so a level is three kernels
+    (DP with trace, walk, next tile) and the walk's zeroed records.  All K
+    levels are enqueued with no host sync; resolve() fetches the K record
+    matrices, tile 1's stats and the K-1 speculative requests in one
+    transfer.
 
     chrom_start / chrom_len: each lane's chromosome (absolute start,
     padded length); q_buf_start / q_len: its read's start in the query
@@ -229,21 +215,22 @@ def extend_tiles_spec_async(ref_codes, query_codes, r_start, r_size,
     curr = req[9:11]
     se = torch.ones(B, dtype=torch.bool, device=dev)
     events = _events(dev)
-    tile = (req[0], req[1], req[2], req[3])
+    # level 1's tiles; each later level's come from gact_next
+    qtile, rtile = gather_tiles(ref_codes, query_codes, req[0], req[1],
+                                req[2], req[3], rev_d, qt, rt)
+    if events:
+        events[0].record()
+    sizes = tile_sizes(req[3], req[1])
     recs, spec = [], []
     for j in range(K):
-        qtile, rtile = gather_tiles(ref_codes, query_codes, tile[0], tile[1],
-                                    tile[2], tile[3], rev_d, qt, rt)
-        if events and j == 0:
-            events[0].record()
-        rec, stats = _extend_tile(qtile, rtile, tile[3], tile[1], se,
-                                  params, max_tb)
+        rec, stats = _extend_tile(qtile, rtile, sizes, se, params, max_tb)
         recs.append(rec)
         if j == 0:
             stats1 = torch.stack(stats)
         if j < K - 1:
-            nxt = next_tiles(rec, lane, curr, qt, stop_thr, qt + rt)
-            tile = (nxt[0], nxt[1], nxt[2], nxt[3])
+            nxt, qtile, rtile, sizes = next_tiles(
+                rec, lane, curr, ref_codes, query_codes, qt, stop_thr,
+                qt + rt)
             curr = nxt[4:6]
             spec.append(nxt[:4])
     if events:

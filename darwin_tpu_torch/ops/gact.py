@@ -5,9 +5,10 @@ Counterpart of ``darwin_tpu/ops/gact.py`` and of the Pallas kernels in
 ``darwin_tpu/ops/gact_pallas.py``.  ``batch_align`` is the twin of
 ``csrc/gact_dp.cu`` (which replaces ``_dp_kernel`` and
 ``_dp_strip_kernel``); ``traceback`` is the twin of ``csrc/gact_tb.cu``
-(which replaces ``_tb_kernel`` and ``_tb_kernel_safe``).  Both run on any
-device; ``ops/gact_cuda.py`` routes CPU tensors here and CUDA tensors to
-the kernels.
+(which replaces ``_tb_kernel`` and ``_tb_kernel_safe``); ``spec_next_tiles``
+(``spec_next``, ``gather_tiles``, ``tile_sizes``) is the twin of
+``csrc/gact_next.cu``.  All run on any device; ``ops/gact_cuda.py`` routes
+CPU tensors here and CUDA tensors to the kernels.
 
 The DP is the exact recurrence of ``darwin_tpu.ops.oracle.clean_align``
 (two-piece affine local Smith-Waterman), for any scoring: the within-column
@@ -258,8 +259,9 @@ def traceback(trace, start_q, start_r, max_tb: int):
 
 
 def spec_next(rec, lane, curr, T: int, stop_thr: int, max_ops: int):
-    """Plain twin of the ``gact_next`` kernel: the next square tile of a
-    speculative chain, from the walker's records of the tile before.
+    """The request part of the ``gact_next`` kernel's twin: the next square
+    tile of a speculative chain, from the walker's records of the tile
+    before.
 
     The advance (dr, dq) is darwin_tpu/ops/dispatch.py:_device_consumed
     (:273-329) term for term: the walk's op stream cut at L = 32 *
@@ -320,6 +322,45 @@ def spec_next(rec, lane, curr, T: int, stop_thr: int, max_ops: int):
     q_rel = torch.where(rev, cq, torch.where(cq >= T, cq - T + 1, 0))
     return torch.stack([chrom_start + r_rel, r_size, q_buf_start + q_rel,
                         q_size, cr, cq, dr, dq])
+
+
+def gather_tiles(ref_codes, query_codes, r_start, r_size, q_start, q_size,
+                 rev, qt: int, rt: int):
+    """(B, qt) query and (B, rt) ref tiles from the code buffers
+    (darwin_tpu/ops/dispatch.py:gather_tiles).  r_start/r_size/q_start/
+    q_size: (B,) int64 tensors; rev (B,) bool gathers both tiles reversed
+    (the right-extension orientation).  Indices are clamped into the
+    buffers in int64, so a lane whose request points outside them holds
+    the end codes (darwin_tpu relies on uint32 wraparound there)."""
+    dev = ref_codes.device
+    i = torch.arange(rt, dtype=torch.int64, device=dev)[None, :]
+    ridx = torch.where(rev[:, None], (r_start + r_size - 1)[:, None] - i,
+                       r_start[:, None] + i)
+    j = torch.arange(qt, dtype=torch.int64, device=dev)[None, :]
+    qidx = torch.where(rev[:, None], (q_start + q_size - 1)[:, None] - j,
+                       q_start[:, None] + j)
+    rtile = ref_codes[ridx.clamp_(0, ref_codes.shape[0] - 1)]
+    qtile = query_codes[qidx.clamp_(0, query_codes.shape[0] - 1)]
+    return qtile, rtile
+
+
+def tile_sizes(q_size, r_size):
+    """(4, B) int32 rows q_size, r_size, q_size - 1, r_size - 1: a level's
+    tile sizes as ``gact_dp`` takes them and the walk's start as
+    ``gact_tb`` takes it."""
+    q32, r32 = q_size.to(torch.int32), r_size.to(torch.int32)
+    return torch.stack([q32, r32, q32 - 1, r32 - 1])
+
+
+def spec_next_tiles(rec, lane, curr, ref_codes, query_codes, T: int,
+                    stop_thr: int, max_ops: int):
+    """Plain twin of the ``gact_next`` kernel: ``spec_next``'s (8, B)
+    int64 request rows, then the next level's inputs — its (B, T) query
+    and ref tiles as ``gather_tiles`` cuts them and its ``tile_sizes``."""
+    req = spec_next(rec, lane, curr, T, stop_thr, max_ops)
+    qtile, rtile = gather_tiles(ref_codes, query_codes, req[0], req[1],
+                                req[2], req[3], lane[0] != 0, T, T)
+    return req, qtile, rtile, tile_sizes(req[3], req[1])
 
 
 def expand_records(rec: np.ndarray, n_valid: int, L: int):

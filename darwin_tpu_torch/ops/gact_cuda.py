@@ -1,8 +1,8 @@
 """Wrappers of the GACT kernels (counterpart of
 ``darwin_tpu/ops/gact_pallas.py``'s ``_dp_call`` and ``_tb_call``, and of
 ``darwin_tpu/ops/dispatch.py``'s ``_device_consumed`` with the next-request
-arithmetic of its speculative chains), and the launch counts of every
-kernel of the package.
+arithmetic and tile gather of its speculative chains), and the launch
+counts of every kernel of the package.
 
 ``dp_tiles`` launches ``csrc/gact_dp.cu``, ``traceback_tiles``
 ``csrc/gact_tb.cu`` and ``next_tiles`` ``csrc/gact_next.cu`` for CUDA
@@ -169,16 +169,22 @@ def traceback_tiles(trace, start_q, start_r, max_tb: int):
     return rec, q_steps, r_steps
 
 
-def next_tiles(rec, lane, curr, T: int, stop_thr: int, max_ops: int):
-    """The next square tile of each lane's speculative chain.  rec (RT, B)
-    int32 walker records; lane (5, B) int64 rows rev, chrom_start,
-    chrom_len, q_buf_start, q_len; curr (2, B) int64 rows curr_ref, curr_q.
-    Returns (8, B) int64 rows r_start, r_size, q_start, q_size, curr_ref,
-    curr_q, dr, dq (``gact.spec_next`` states the rule)."""
+def next_tiles(rec, lane, curr, ref_codes, query_codes, T: int,
+               stop_thr: int, max_ops: int):
+    """The next square tile of each lane's speculative chain, and that
+    level's inputs.  rec (RT, B) int32 walker records; lane (5, B) int64
+    rows rev, chrom_start, chrom_len, q_buf_start, q_len; curr (2, B) int64
+    rows curr_ref, curr_q; ref_codes / query_codes the resident (N,) uint8
+    code buffers.  Returns (req (8, B) int64 rows r_start, r_size, q_start,
+    q_size, curr_ref, curr_q, dr, dq; qtile (B, T) uint8; rtile (B, T)
+    uint8; sizes (4, B) int32 rows q_size, r_size, q_size - 1, r_size - 1)
+    — ``gact.spec_next_tiles`` states the rule."""
     dev = rec.device
     check_tensor("rec", rec, torch.int32, 2, dev)
     check_tensor("lane", lane, torch.int64, 2, dev)
     check_tensor("curr", curr, torch.int64, 2, dev)
+    check_tensor("ref_codes", ref_codes, torch.uint8, 1, dev)
+    check_tensor("query_codes", query_codes, torch.uint8, 1, dev)
     RT, B = rec.shape
     if lane.shape != (5, B) or curr.shape != (2, B):
         raise ValueError(f"next_tiles: lane {tuple(lane.shape)} and curr "
@@ -186,16 +192,26 @@ def next_tiles(rec, lane, curr, T: int, stop_thr: int, max_ops: int):
     if T < 1 or max_ops < 0:
         raise ValueError(f"next_tiles: T={T}, max_ops={max_ops}")
     if B == 0:
-        return torch.empty((8, 0), dtype=torch.int64, device=dev)
+        return (torch.empty((8, 0), dtype=torch.int64, device=dev),
+                torch.empty((0, T), dtype=torch.uint8, device=dev),
+                torch.empty((0, T), dtype=torch.uint8, device=dev),
+                torch.empty((4, 0), dtype=torch.int32, device=dev))
     if dev.type == "cpu":
-        return gact.spec_next(rec, lane, curr, T, stop_thr, max_ops)
+        return gact.spec_next_tiles(rec, lane, curr, ref_codes, query_codes,
+                                    T, stop_thr, max_ops)
     if dev.type != "cuda":
         raise ValueError(f"next_tiles: unsupported device {dev}")
     lib = build.load()
-    out = torch.empty((8, B), dtype=torch.int64, device=dev)
+    req = torch.empty((8, B), dtype=torch.int64, device=dev)
+    qtile = torch.empty((B, T), dtype=torch.uint8, device=dev)
+    rtile = torch.empty((B, T), dtype=torch.uint8, device=dev)
+    sizes = torch.empty((4, B), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        err = lib.gact_next(ptr(rec), ptr(lane), ptr(curr), B, RT, int(T),
-                            int(stop_thr), int(max_ops), ptr(out),
+        err = lib.gact_next(ptr(rec), ptr(lane), ptr(curr), ptr(ref_codes),
+                            ref_codes.shape[0], ptr(query_codes),
+                            query_codes.shape[0], B, RT, int(T),
+                            int(stop_thr), int(max_ops), ptr(req),
+                            ptr(qtile), ptr(rtile), ptr(sizes),
                             stream_ptr(dev))
     count_launch("gact_next", err, f"records {RT}x{B}, T={T}")
-    return out
+    return req, qtile, rtile, sizes

@@ -2,6 +2,7 @@
 
     python -m darwin_tpu_torch.tools.profile_align [--out DIR] \
         [--case ecoli|ecoli_generic|overlap] [--spec-k K] [--pipeline-depth D]
+    python -m darwin_tpu_torch.tools.profile_align --chain-launches
 
 Writes one of ``chip_smoke.py``'s real-size cases (seed 0) — ``ecoli``:
 the E. coli K-12-size reference-guided case of phase 5
@@ -29,9 +30,18 @@ extension dispatch, the time between an event recorded before its first DP
 launch and one after its last launch, on the dispatch's stream.
 
 The last run is under ``torch.profiler``: it prints the device self time
-of each kernel, their sum, and the card's busy share — the union of the
+of each kernel, their sum, the same by group (``gact_dp``, ``gact_tb``,
+``gact_next``, copies, memsets, and the other — torch's — kernels, the
+largest of them named), and the card's busy share — the union of the
 device activity intervals over the wall time of ``run`` (index + align
-phase; the profiler's own host cost is in that wall time).  With
+phase; the profiler's own host cost is in that wall time).
+
+``--chain-launches`` instead counts the device launches (kernels, copies,
+memsets) one speculative dispatch of 512 lanes enqueues, at K = 2 and
+K = 12, under ``torch.profiler``: the difference over 10 is the launches
+per chain level, the rest the dispatch's fixed part.  It calls only
+``ops.dispatch.extend_tiles_spec_async``, so with another checkout's
+package first on ``PYTHONPATH`` it counts that checkout's chains.  With
 ``--out DIR`` the profiler's whole table goes to
 ``DIR/profile_table.txt``.  The last line is one JSON object of the
 numbers printed.
@@ -111,6 +121,79 @@ def _busy_ms(events) -> float:
     return busy / 1000
 
 
+# the groups the profiled run's device time is itemized by: (group, the
+# part of the profiler's event name that puts an event in it)
+GROUPS = (("gact_dp", "gact_dp_kernel"), ("gact_tb", "gact_tb_kernel"),
+          ("gact_next", "gact_next_kernel"), ("copies", "Memcpy"),
+          ("memsets", "Memset"))
+
+
+def group_of(name: str) -> str:
+    return next((g for g, part in GROUPS if part in name), "other")
+
+
+def by_group(kernels) -> dict:
+    """{group: {"self_ms", "count"}} of the profiler's device rows, and
+    under "other_top" the largest other kernels."""
+    out = {g: {"self_ms": 0.0, "count": 0}
+           for g in [g for g, _ in GROUPS] + ["other"]}
+    for e in kernels:
+        g = out[group_of(e.key)]
+        g["self_ms"] += e.self_device_time_total / 1000
+        g["count"] += e.count
+    out["other_top"] = [
+        {"name": e.key[:80], "count": e.count,
+         "self_ms": e.self_device_time_total / 1000}
+        for e in kernels if group_of(e.key) == "other"][:8]
+    return out
+
+
+def chain_launches(device="cuda", B=512, T=384, seed=0) -> dict:
+    """Device launches of one speculative dispatch of B lanes at K = 2 and
+    K = 12 (see the module docstring); random codes, both
+    orientations."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from darwin_tpu_torch.ops import gact
+    rng = np.random.default_rng(seed)
+    dev = torch.device(device)
+    n_ref, read = 4_000_000, 10_000
+    ref = torch.from_numpy(rng.integers(0, 4, n_ref).astype(np.uint8)
+                           ).to(dev)
+    query = torch.from_numpy(rng.integers(0, 4, B * read).astype(np.uint8)
+                             ).to(dev)
+    rev = np.arange(B) % 2
+    r_start = rng.integers(T, n_ref - 2 * T, B)
+    q_buf = np.arange(B, dtype=np.int64) * read
+    q_start = q_buf + rng.integers(T, read - 2 * T, B)
+    size = np.full(B, T, np.int64)
+    args = (ref, query, r_start, size, q_start, size, rev,
+            np.zeros(B, np.int64), np.full(B, n_ref, np.int64), q_buf,
+            np.full(B, read, np.int64), gact.make_params(Config()))
+    kw = dict(qt=T, rt=T, max_tb=2 * T, stop_thr=T - Config().tile_overlap)
+    counts = {}
+    for K in (2, 12):
+        dispatch.extend_tiles_spec_async(*args, K=K, **kw)()      # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            resolve = dispatch.extend_tiles_spec_async(*args, K=K, **kw)
+            torch.cuda.synchronize()
+        resolve()
+        names = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                g = group_of(e.name)
+                names[g] = names.get(g, 0) + 1
+        counts[K] = names
+    total = {K: sum(c.values()) for K, c in counts.items()}
+    per_level = (total[12] - total[2]) / 10
+    return {"lanes": B, "launches": {str(K): c for K, c in counts.items()},
+            "per_level": per_level, "fixed": total[2] - 2 * per_level,
+            "per_level_by_group": {
+                g: (counts[12].get(g, 0) - counts[2].get(g, 0)) / 10
+                for g in set(counts[12]) | set(counts[2])}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -121,11 +204,21 @@ def main(argv=None) -> int:
                     help="tiles per speculative chain (run()'s spec_k)")
     ap.add_argument("--pipeline-depth", type=int, default=2,
                     help="read batches in flight (run()'s pipeline_depth)")
+    ap.add_argument("--chain-launches", action="store_true",
+                    help="only count one speculative dispatch's launches "
+                         "per chain level")
     args = ap.parse_args(argv)
     path = dict(spec_k=args.spec_k, pipeline_depth=args.pipeline_depth)
     if not torch.cuda.is_available():
         print("profile_align: no CUDA device", file=sys.stderr)
         return 2
+    if args.chain_launches:
+        res = chain_launches()
+        print(f"device launches per chain level: {res['per_level']} "
+              f"({res['per_level_by_group']}); fixed part of a dispatch "
+              f"{res['fixed']}", flush=True)
+        print(json.dumps(res))
+        return 0
     from torch.profiler import ProfilerActivity, profile
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -190,11 +283,18 @@ def main(argv=None) -> int:
     for e in kernels[:12]:
         print(f"   {e.self_device_time_total / 1000:9.2f} ms x "
               f"{e.count:5d}  {e.key[:90]}")
+    groups = by_group(kernels)
+    print("   by group: " + ", ".join(
+        f"{g} {v['self_ms']:.2f} ms x {v['count']}"
+        for g, v in groups.items() if g != "other_top"))
+    print("   other, largest: " + "; ".join(
+        f"{o['self_ms']:.2f} ms x {o['count']} {o['name'][:60]}"
+        for o in groups["other_top"]))
     summary.update(device_self_ms=dev_ms, device_busy_ms=busy,
                    profiled_wall_ms=wall * 1000, kernels=[
                        {"name": e.key[:120], "count": e.count,
                         "self_ms": e.self_device_time_total / 1000}
-                       for e in kernels[:12]])
+                       for e in kernels[:12]], groups=groups)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "profile_table.txt"), "w") as f:

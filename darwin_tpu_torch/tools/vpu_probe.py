@@ -4,9 +4,24 @@
     python -m darwin_tpu_torch.tools.vpu_probe [--programs N] [--samples N]
 
 prints one JSON line ``{"device": ..., "power_limit": ..., mode: {"tops":
-..., "ms": ..., ...}}``.  The tile DP (``csrc/gact_dp.cu``) is made of these
-ops — int32 max, add, compare + select — so its bound on a card is its
-integer ops per cell times its cells over the rate measured here.
+..., "ms": ..., "bound_ms": ..., "share": ..., ...}}``.  The tile DP
+(``csrc/gact_dp.cu``) is made of these ops — int32 max, add, compare +
+select — so its bound on a card is its integer ops per cell times its cells
+over the rate measured here.
+
+Each mode's bound comes from its own operations (``mode_bounds``,
+``MODE_OPS``): the larger of those only the ALU pipe issues (min / max,
+logic, compare + select) over its 64 int32 lanes per SM and all of them
+over the 128 lanes of the ALU and FMA pipes (an add issues on either).
+Every mode's chain is at most half ALU-only, so every bound is the
+128-lane one.  ``share`` is that bound over the mode's fastest time.  The
+compiled chain (``cuobjdump`` SASS, counted per thread; the chains are
+unrolled, so the static count is the executed one) is put through the
+same rule beside it, as the compiler's split: its address and loop
+instructions are not the function's, so that floor is no bound.  The tile
+DP's bound (``chip_smoke.py``) divides all its operations by the 128
+lanes: its maxes and adds pair into DPX add-max and three-way max
+instructions, so a count of its ALU-only operations is no floor for it.
 
 ``probe_block`` launches ``csrc/int_probe.cu`` for a CUDA tensor, on the
 current stream, without synchronising; a tensor on the CPU takes the plain
@@ -16,8 +31,9 @@ and writes ``x + y``; ``programs`` programs compute the same block.
 Arithmetic wraps (two's complement), as torch's int32 does.
 
 ``tops`` counts 2 ops per rep and element whatever the mode, as the
-original does: ``sel`` does 4 source-level ops per rep and ``shift`` 3, so
-scale those by 2 and 1.5; ``max4`` does 4 per rep over half the reps.
+original does: ``sel`` does 3 operations per rep (its compare + select is
+one min), so scale it by 1.5; ``shift`` does 2 and a row move; ``max4``
+does 4 per rep over half the reps.
 ``sass_counts`` says what the compiler really emitted.
 """
 
@@ -75,6 +91,84 @@ def probe_plain(x: torch.Tensor, mode: str) -> torch.Tensor:
     return x + y
 
 
+# What bounds each mode: its integer operations as csrc/int_probe.cu writes
+# the chain, per element of one program: (those only the ALU pipe issues,
+# all of them).  Min / max, logic (the add mode's xor) and compare + select
+# (sel's, one min) issue only on the ALU pipe's 64 int32 lanes per SM; an
+# add issues there or, as a multiply-add, on the FMA pipe's 64, so the
+# integer operations share 128 lanes (the CUDA programming guide's
+# throughput table, compute capability 9.0).  Every mode adds y = x + 1
+# and the output x + y; shift's row shift is a move; max4 does two maxes
+# and two adds per rep over REPS / 2 reps, with c = x + 3, d = y ^ 5,
+# x + c and y + d around them.
+MODE_OPS = {"max": (REPS, 2 * REPS + 2), "add": (REPS, 2 * REPS + 2),
+            "sel": (REPS, 3 * REPS + 2), "shift": (REPS, 2 * REPS + 2),
+            "max4": (REPS + 1, 2 * REPS + 6)}
+# lanes per SM per clock: ALU-only, FMA-only (multiplies), either integer
+# pipe, the shuffle unit
+LANES_OF = {"alu": 64, "fma": 64, "alu+fma": 128, "shfl": 32}
+# For reading the compiled chains only (``mode_bounds``' "compiled"): the
+# class of each integer opcode the probe compiles to — min / max, logic,
+# compare, select and shifts on the ALU pipe, multiplies (IMAD, also used
+# for adds) on the FMA pipe, shuffles on their unit, and adds (IADD3,
+# VIADD) only in the shared term, their pipe not being documented.
+# Memory, control, moves and uniform-datapath opcodes are listed apart.
+SASS_CLASS = {"IMNMX": "alu", "VIMNMX": "alu", "VIADDMNMX": "alu",
+              "ISETP": "alu", "SEL": "alu", "LOP3": "alu", "SHF": "alu",
+              "LEA": "alu", "IABS": "alu", "PRMT": "alu", "IMAD": "fma",
+              "IMUL": "fma", "IADD3": "add", "VIADD": "add",
+              "SHFL": "shfl"}
+# the card's SMs and boost clock (NVIDIA's H100 SXM data sheet)
+SMS, CLOCK_HZ = 132, 1.98e9
+# a program is LANES / 8 thread blocks of 256 threads (csrc/int_probe.cu)
+THREADS_PER_PROGRAM = LANES // 8 * 256
+
+
+def floor_ms(n: int, alu=0, fma=0, every=0, shfl=0):
+    """The least ms, and the term that sets it, for ``n`` threads (or
+    elements) that each issue ``alu`` ALU-only, ``fma`` FMA-only and
+    ``shfl`` shuffle instructions and ``every`` integer ones in all."""
+    per = {"alu": alu, "fma": fma, "alu+fma": every, "shfl": shfl}
+    ms = {p: k * n / (LANES_OF[p] * SMS * CLOCK_HZ) * 1e3
+          for p, k in per.items()}
+    pipe = max(ms, key=ms.get)
+    return ms[pipe], pipe
+
+
+def mode_bounds(programs: int, sass: dict | None = None) -> dict:
+    """Each mode's bound for one launch of ``programs`` programs, from its
+    operations (``MODE_OPS``): {mode: {"bound_ms", "bound_pipe", "ops":
+    [ALU-only, all] per element}}.  With ``sass`` (``sass_counts()``) also
+    "compiled": the compiled chain's instructions per thread by class,
+    the opcodes outside the classes ("other") and the same floor for them
+    ("floor_ms", "floor_pipe") — the compiler's split, not a bound of the
+    function."""
+    out = {}
+    for mode, (alu, every) in MODE_OPS.items():
+        ms, pipe = floor_ms(QT * LANES * programs, alu=alu, every=every)
+        out[mode] = {"bound_ms": ms, "bound_pipe": pipe,
+                     "ops": [alu, every]}
+    for fn, info in (sass or {}).items():
+        m = re.search(r"int_probe_kernelILi(\d)E", fn)
+        if not m:
+            continue
+        pipes = dict.fromkeys(("alu", "fma", "add", "shfl"), 0)
+        other = {}
+        for op, n in info["all"].items():
+            if op in SASS_CLASS:
+                pipes[SASS_CLASS[op]] += n
+            else:
+                other[op] = n
+        ms, pipe = floor_ms(programs * THREADS_PER_PROGRAM,
+                            alu=pipes["alu"], fma=pipes["fma"],
+                            every=pipes["alu"] + pipes["fma"] + pipes["add"],
+                            shfl=pipes["shfl"])
+        out[MODES[int(m.group(1))]]["compiled"] = {
+            "pipes": pipes, "other": other, "floor_ms": ms,
+            "floor_pipe": pipe}
+    return out
+
+
 def probe_block(x: torch.Tensor, mode: str, programs: int = 1):
     """One launch of the probe kernel: ``programs`` programs each compute
     ``probe_plain(x, mode)`` into the same (384, 128) output."""
@@ -112,7 +206,9 @@ def probe(modes=MODES, programs: int = 8192, samples: int = 5,
     """Time each mode on the card: ``samples`` windows of ``launches``
     launches of ``programs`` programs, CUDA events around each window.
     Returns {mode: {"tops" (from the fastest window), "ms" per launch
-    min / median / max over the windows}}."""
+    min / median / max over the windows, ``mode_bounds``' "bound_ms" and
+    "bound_pipe", "share" = bound_ms / ms, and "compiled": the compiled
+    chain's split with its floor's share}}."""
     dev = torch.device(device)
     if dev.type != "cuda":
         raise RuntimeError("the op-rate probe times the card; device must "
@@ -139,6 +235,13 @@ def probe(modes=MODES, programs: int = 8192, samples: int = 5,
         out[mode] = {"tops": ops / (min(ms) * 1e-3) / 1e12,
                      "ms": min(ms), "ms_median": float(np.median(ms)),
                      "ms_max": max(ms)}
+    bounds = mode_bounds(programs, sass_counts())
+    for mode in modes:
+        b = bounds[mode]
+        c = b["compiled"]
+        c["share"] = c["floor_ms"] / out[mode]["ms"]
+        out[mode].update(bound_ms=b["bound_ms"], bound_pipe=b["bound_pipe"],
+                         share=b["bound_ms"] / out[mode]["ms"], compiled=c)
     return out
 
 

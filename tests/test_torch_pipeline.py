@@ -186,3 +186,31 @@ def test_profile_busy_time_is_the_union_of_device_intervals():
               for d, s, e in spans]
     assert _busy_ms(events) == (20 + 10) / 1000
     assert _busy_ms([]) == 0.0
+
+
+def test_profile_groups_itemize_the_device_time():
+    """tools/profile_align's groups: each kernel of the package by its
+    name, copies and memsets by the profiler's names, the rest "other",
+    largest first."""
+    from types import SimpleNamespace as NS
+    from darwin_tpu_torch.tools.profile_align import by_group, group_of
+    assert group_of("void (anonymous namespace)::gact_next_kernel(int)") \
+        == "gact_next"
+    assert group_of("Memcpy DtoH (Device -> Pageable)") == "copies"
+    assert group_of("Memset (Device)") == "memsets"
+    assert group_of("void at::native::index_elementwise_kernel<128>") \
+        == "other"
+    rows = [NS(key="gact_dp_kernel<6, true>", count=3,
+               self_device_time_total=3000),
+            NS(key="gact_dp_kernel<3, true>", count=1,
+               self_device_time_total=500),
+            NS(key="at::native::where_kernel", count=7,
+               self_device_time_total=700),
+            NS(key="at::native::clamp_kernel", count=2,
+               self_device_time_total=200)]
+    got = by_group(rows)
+    assert got["gact_dp"] == {"self_ms": 3.5, "count": 4}
+    assert got["other"] == {"self_ms": pytest.approx(0.9), "count": 9}
+    assert got["gact_next"] == {"self_ms": 0.0, "count": 0}
+    assert [o["name"] for o in got["other_top"]] == [
+        "at::native::where_kernel", "at::native::clamp_kernel"]

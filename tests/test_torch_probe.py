@@ -131,3 +131,60 @@ def test_probe_block_takes_the_twin_on_cpu_and_checks_inputs():
         vpu_probe.probe_block(x.long(), "max")
     with pytest.raises(RuntimeError, match="cuda"):
         vpu_probe.probe(device="cpu")          # rates come from the card
+
+
+def test_mode_bounds_take_the_pipe_each_mode_issues_on():
+    """Each mode's bound is its own operations on the pipes that can issue
+    them: the ALU-only ones (min / max, logic) over 64 lanes, all of them
+    over the ALU and FMA pipes' 128.  The compiled chain's SASS goes
+    through the same rule beside it (multiplies on the FMA pipe, adds in
+    the shared term, shuffles on their 32 lanes), as a diagnostic that
+    never sets the bound; memory and control opcodes count nowhere."""
+    sass = {
+        "_ZN12_GLOBAL__N_116int_probe_kernelILi0EEEvPKiPi": {
+            "all": {"VIMNMX": 900, "IMAD": 789, "IADD3": 24, "LDG": 12,
+                    "BRA": 3}},
+        "_ZN12_GLOBAL__N_116int_probe_kernelILi2EEEvPKiPi": {
+            "all": {"VIMNMX": 766, "IMAD": 30, "VIADD": 1181,
+                    "IADD3": 382}},
+        "_ZN12_GLOBAL__N_116int_probe_kernelILi3EEEvPKiPi": {
+            "all": {"SHFL": 2000, "VIMNMX": 10}},
+        "_ZN12_GLOBAL__N_114gact_dp_kernelILi6ELb1EEEvPKh": {
+            "all": {"VIMNMX": 5}},
+    }
+    programs = 8192
+    got = vpu_probe.mode_bounds(programs, sass)
+    assert set(got) == set(vpu_probe.MODES)
+    elements = programs * vpu_probe.QT * vpu_probe.LANES
+    threads = programs * (vpu_probe.LANES // 8) * 256
+    assert threads == programs * 16 * 256
+
+    def ms(n, per, lanes):
+        return n * per / (lanes * 132 * 1.98e9) * 1e3
+    # max: 64 maxes and 64 adds per element, y = x + 1 and x + y: the
+    # maxes are half, so all 130 over 128 lanes bind (1.5647 ms)
+    assert got["max"]["ops"] == [64, 130]
+    assert got["max"]["bound_pipe"] == "alu+fma"
+    assert got["max"]["bound_ms"] == pytest.approx(ms(elements, 130, 128))
+    assert got["max"]["bound_ms"] == pytest.approx(1.5647, abs=1e-4)
+    assert got["add"]["ops"] == [64, 130]
+    assert got["sel"]["ops"] == [64, 194]       # a min and two adds a rep
+    assert got["shift"]["ops"] == [64, 130]     # the row shift is a move
+    assert got["max4"]["ops"] == [65, 134]
+    for b in got.values():
+        assert b["bound_pipe"] == "alu+fma"
+    # the compiled split: max's extra ALU instructions set its floor
+    c = got["max"]["compiled"]
+    assert c["pipes"] == {"alu": 900, "fma": 789, "add": 24, "shfl": 0}
+    assert c["other"] == {"LDG": 12, "BRA": 3}
+    assert c["floor_pipe"] == "alu"
+    assert c["floor_ms"] == pytest.approx(ms(threads, 900, 64))
+    c = got["sel"]["compiled"]
+    assert c["floor_pipe"] == "alu+fma"
+    assert c["floor_ms"] == pytest.approx(ms(threads, 766 + 30 + 1563, 128))
+    c = got["shift"]["compiled"]
+    assert c["floor_pipe"] == "shfl"
+    assert c["floor_ms"] == pytest.approx(ms(threads, 2000, 32))
+    assert "compiled" not in got["add"]
+    assert vpu_probe.mode_bounds(programs)["sel"]["bound_ms"] == \
+        got["sel"]["bound_ms"]

@@ -2,7 +2,10 @@
 darwin_tpu on the CPU: the next-tile rule of the speculative chains
 (``gact.spec_next``, the twin of the ``gact_next`` kernel), the K-tile
 speculative dispatch, ``run()`` at every tested chain depth and number of
-read batches in flight, its stage telemetry and ``--index-cache``.
+read batches in flight, its stage telemetry and ``--index-cache``; and a
+numpy transcription of the ``gact_next`` kernel's schedule (warp-wide
+scan, a ballot per word, the warp's carry, the fused tile gather) held to
+the twin and to darwin_tpu.
 Tolerance: none — integers are equal, SAM bytes and the counter block
 identical.
 
@@ -13,6 +16,8 @@ darwin_tpu's speculative dispatch runs as its own tests run it on the CPU
 
 import io
 import itertools
+import os
+import re
 import threading
 import time
 
@@ -29,7 +34,7 @@ from darwin_tpu.pipeline.align import run as jax_run
 from darwin_tpu_torch import cli
 from darwin_tpu_torch.config import Config
 from darwin_tpu_torch.genome import GenomeStore, encode5, revcomp_bytes
-from darwin_tpu_torch.ops import dispatch, gact
+from darwin_tpu_torch.ops import dispatch, gact, gact_cuda
 from darwin_tpu_torch.pipeline.align import run
 from darwin_tpu_torch.utils.simulate import mutate_read
 
@@ -94,6 +99,19 @@ def _synthetic_records(rng):
     c[:T // 2] = 0                                        # half a walk
     c[T // 2] = 5                                         # ends in I's
     cols.append(c)
+    M = gact.OP_M << 14
+    # walks given in walk order (record row T - 1 first), all M after the
+    # ops listed: a closing M at word places 31 and 32; a closing M at
+    # place 32 on the step's last column (a zero column first); an insert
+    # run over three words; a step of 37 ops, so that every later word
+    # straddles two steps (cut in its second step at stop_thr 320, the cut
+    # carried into the next step at 0, 1 and 320); rows above the walk's
+    # start left zero
+    for head in ([30 | M, M], [0] + [M] * 30 + [1 | M], [M, 100 | M],
+                 [5 | M], [0] * 50):
+        c = np.full(T, M)
+        c[:len(head)] = head
+        cols.append(c[::-1].copy())
     for _ in range(10):
         n_ins = np.where(rng.random(T) < 0.2, rng.integers(0, 60, T), 0)
         cols.append(col(n_ins, rng.integers(0, 4, T)))
@@ -152,41 +170,142 @@ def _darwin_tpu_next(rec, lane, curr, stop_thr):
                      np.asarray(dr), np.asarray(dq)]).astype(np.int64)
 
 
-def _kernel_advance(rec, stop_thr):
-    """csrc/gact_next.cu's per-lane loop, transcribed: (dr, dq) per lane."""
-    rec = rec.numpy()
+def _source_constants(source, *names):
+    """``constexpr int NAME = <integer expression>;`` of a kernel source, so
+    the transcription follows the kernel's own constants."""
+    path = os.path.join(os.path.dirname(gact_cuda.__file__), "..", "csrc",
+                        source)
+    with open(path) as f:
+        text = re.sub(r"//[^\n]*", "", f.read())
+    exprs = dict(re.findall(r"constexpr\s+int\s+(\w+)\s*=\s*([^;]+);",
+                            text))
+
+    def value(name):
+        expr = exprs[name]
+        assert re.fullmatch(r"[\w\s+*/()-]+", expr), (name, expr)
+        return eval(expr.replace("/", "//"), {"__builtins__": {}},
+                    {n: value(n) for n in re.findall(r"[A-Za-z_]\w*", expr)})
+    return [value(n) for n in names]
+
+
+(WARP, LANES_PER_BLOCK, THREADS, CHUNK_ROWS, PSTRIDE, STAGE,
+ GATHER) = _source_constants("gact_next.cu", "WARP", "LANES_PER_BLOCK",
+                             "THREADS", "CHUNK_ROWS", "PSTRIDE", "STAGE",
+                             "GATHER")
+
+
+def _stage(rec, b0, hi):
+    """One block's patch of csrc/gact_next.cu: thread x's k-th load is
+    element g = x + k * THREADS, walk row g / LANES_PER_BLOCK of lane g %
+    LANES_PER_BLOCK (record column hi - row), stored lane-major at stride
+    PSTRIDE; rows past the records and lanes past B hold 0."""
     RT, B = rec.shape
-    L = -(-MAX_OPS // 32) * 32
-    out = []
-    for b in range(B):
-        p = count = base = dr = dq = 0
-        cut = False
-        for c in range(RT - 1, -1, -1):
-            if p >= L:
+    rows = min(CHUNK_ROWS, hi + 1)
+    nl = min(LANES_PER_BLOCK, B - b0)
+    patch = np.zeros(LANES_PER_BLOCK * PSTRIDE, np.int64)
+    g = np.arange(THREADS)[:, None] + np.arange(STAGE)[None, :] * THREADS
+    r, ln = g // LANES_PER_BLOCK, g % LANES_PER_BLOCK
+    ok = (r < rows) & (ln < nl)
+    patch[ln * PSTRIDE + r] = np.where(
+        ok, rec[np.clip(hi - r, 0, RT - 1), np.minimum(b0 + ln, B - 1)], 0)
+    return patch
+
+
+def _warp_advance(rec, stop_thr, max_ops):
+    """csrc/gact_next.cu's walk, transcribed: (dr, dq) per lane.  A block
+    stages its lanes' records CHUNK_ROWS rows at a time; a warp walks its
+    lane WARP columns a step, one per thread; an inclusive scan of the
+    columns' op counts places them in the stream; each word the step
+    touches takes one ballot for its first cutting M; the carry (p, count,
+    base, cut) is the warp's; each thread sums the taken part of its own
+    column, and the warp adds the threads' sums at the end."""
+    rec = np.asarray(rec).astype(np.int64)
+    RT, B = rec.shape
+    L = -(-max_ops // 32) * 32
+    t = np.arange(WARP)
+    out = np.zeros((2, B), np.int64)
+    for b0 in range(0, B, LANES_PER_BLOCK):
+        warps = range(min(LANES_PER_BLOCK, B - b0))
+        carry = [[0, 0, 0, False] for _ in warps]    # p, count, base, cut
+        dr = np.zeros((len(warps), WARP), np.int64)
+        dq = np.zeros((len(warps), WARP), np.int64)
+        for hi in range(RT - 1, -1, -CHUNK_ROWS):
+            if all(c[0] >= L for c in carry):        # __syncthreads_and
                 break
-            w = int(rec[c, b])
-            n_ins, closing = w & 0x3FFF, (w >> 14) & 3
-            while n_ins > 0 and p < L:
-                if p % 32 == 0:
-                    base, cut = count, False
-                seg = min(n_ins, 32 - p % 32, L - p)
-                if not cut:
-                    dq += seg
-                    count += seg
-                p += seg
-                n_ins -= seg
-            if closing and p < L:
-                if p % 32 == 0:
-                    base, cut = count, False
-                if not cut:
-                    dr += closing != gact.OP_I
-                    dq += closing != gact.OP_D
-                    count += 1
-                    cut = closing == gact.OP_M and base + p % 32 + 1 \
-                        >= stop_thr
-                p += 1
-        out.append((dr, dq))
-    return np.array(out, np.int64).T
+            patch = _stage(rec, b0, hi)
+            rows = min(CHUNK_ROWS, hi + 1)
+            for wi in warps:
+                p, count, base, cut = carry[wi]
+                for s0 in range(0, rows, WARP):
+                    if p >= L:
+                        break
+                    w = patch[wi * PSTRIDE + s0 + t]
+                    n_ins, closing = w & 0x3FFF, (w >> 14) & 3
+                    cnt = n_ins + (closing != 0)
+                    incl = np.cumsum(cnt)
+                    total = int(incl[-1])
+                    if total == 0:
+                        continue
+                    s = p + incl - cnt
+                    cpos = s + n_ins
+                    end = min(p + total, L)
+                    for ws in range(p & ~31, end, 32):
+                        if ws >= p:
+                            base, cut = count, False
+                        if cut:
+                            continue
+                        lo, hi_op = max(p, ws), min(ws + 32, end)
+                        m = ((closing == gact.OP_M) & (cpos >= lo)
+                             & (cpos < hi_op)
+                             & (base + (cpos - ws) + 1 >= stop_thr))
+                        bal = np.flatnonzero(m)
+                        if bal.size:
+                            hi_op = int(cpos[bal[0]]) + 1
+                            cut = True
+                        dq[wi] += np.maximum(np.minimum(s + n_ins, hi_op)
+                                             - np.maximum(s, lo), 0)
+                        inw = (closing != 0) & (cpos >= lo) & (cpos < hi_op)
+                        dr[wi] += inw & (closing != gact.OP_I)
+                        dq[wi] += inw & (closing != gact.OP_D)
+                        count += hi_op - lo
+                    p += total
+                carry[wi] = [p, count, base, cut]
+        out[:, b0:b0 + len(warps)] = dr.sum(1), dq.sum(1)
+    return out
+
+
+def _warp_next(rec, lane, curr, ref, query, stop_thr, max_ops):
+    """The whole of csrc/gact_next.cu, transcribed: the advance, the next
+    request (int64, both orientations, every clamp) and the gather — code
+    j of a tile at index first + step * j clamped into its buffer, WARP *
+    GATHER codes per pass.  Returns (req (8, B), qtile, rtile, sizes)."""
+    dr, dq = _warp_advance(rec, stop_thr, max_ops)
+    rev, cstart, clen, qbuf, qlen = np.asarray(lane)
+    cr, cq = np.asarray(curr)
+    cr = np.where(rev != 0, np.minimum(cr + dr, clen), np.maximum(cr - dr, 0))
+    cq = np.where(rev != 0, np.minimum(cq + dq, qlen), np.maximum(cq - dq, 0))
+    rsz = np.maximum(np.where(rev != 0, np.minimum(clen - cr, T),
+                              np.minimum(cr + 1, T)), 1)
+    qsz = np.maximum(np.where(rev != 0, np.minimum(qlen - cq, T),
+                              np.minimum(cq + 1, T)), 1)
+    rs = cstart + np.where(rev != 0, cr, np.where(cr >= T, cr - T + 1, 0))
+    qs = qbuf + np.where(rev != 0, cq, np.where(cq >= T, cq - T + 1, 0))
+    step = np.where(rev != 0, -1, 1)
+    j = np.concatenate([j0 + np.arange(GATHER)[:, None] * WARP
+                        + np.arange(WARP)[None, :]
+                        for j0 in range(0, T, WARP * GATHER)], None)
+    j = j[j < T]
+
+    def gather(buf, start, size):
+        first = np.where(rev != 0, start + size - 1, start)
+        idx = np.clip(first[:, None] + step[:, None] * j[None, :], 0,
+                      len(buf) - 1)
+        tile = np.zeros((len(first), T), np.uint8)
+        tile[:, j] = buf[idx]
+        return tile
+    req = np.stack([rs, rsz, qs, qsz, cr, cq, dr, dq]).astype(np.int64)
+    sizes = np.stack([qsz, rsz, qsz - 1, rsz - 1]).astype(np.int32)
+    return req, gather(query, qs, qsz), gather(ref, rs, rsz), sizes
 
 
 @pytest.fixture(scope="module")
@@ -204,10 +323,131 @@ def test_spec_next_is_device_consumed_and_the_request_rule(records,
     want = _darwin_tpu_next(records, lane, curr, stop_thr)
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(got[6:].numpy(),
-                                  _kernel_advance(records, stop_thr))
+                                  _warp_advance(records, stop_thr, MAX_OPS))
     # the cases are real: clamps at both ends, cut and uncut walks
     assert (got[1] < T).any() and (got[3] < T).any()
     assert (got[6] == 0).any() and (got[6] > T // 2).any()
+
+
+@pytest.mark.parametrize("RT", [45, 1000])
+def test_warp_walk_across_chunks(RT):
+    """Records shorter than a step and longer than a staged chunk (three
+    chunks at 1000 rows): the transcription, the twin and darwin_tpu's
+    _device_consumed agree at every stop_thr class."""
+    rng = np.random.default_rng(RT)
+    B = 19
+    # ~0.9 ops a column: the walks reach the last chunk before L
+    n_ins = np.where(rng.random((RT, B)) < 0.02,
+                     rng.integers(0, 10, (RT, B)), 0)
+    n_ins[rng.integers(0, RT, 4), rng.integers(0, B, 4)] = 0x3FFF
+    rec = (n_ins | rng.integers(0, 4, (RT, B)) << 14).astype(np.int32)
+    rec[RT // 3:, :3] = 0                 # walks that start lower down
+    rec = torch.from_numpy(rec)
+    lane, curr = _lanes(rng, B)
+    wants = []
+    for stop_thr in (0, 1, RT - 64, 2 * RT):
+        got = gact.spec_next(rec, lane, curr, T, stop_thr, 2 * RT)
+        jdr, jdq = jdisp._device_consumed(jnp.asarray(rec.numpy()), None,
+                                          None, stop_thr, 2 * RT)
+        want = _warp_advance(rec, stop_thr, 2 * RT)
+        np.testing.assert_array_equal(got[6:].numpy(), want)
+        np.testing.assert_array_equal(np.stack([jdr, jdq]), want)
+        wants.append(want)
+    # words were cut, and uncut walks went past the first chunk
+    assert (wants[0][1] < wants[-1][1]).any()
+    assert RT < CHUNK_ROWS or (wants[-1].sum(0) > CHUNK_ROWS).any()
+
+
+def _gather_case(rng, B, n_ref, n_q):
+    """lane / curr rows whose requests land inside small code buffers,
+    at both of their ends and past them, so that the gather's clamps fire."""
+    lane, curr = _lanes(rng, B)
+    lane[1] = torch.from_numpy(rng.integers(0, n_ref - 200, B))
+    lane[3] = torch.from_numpy(rng.integers(0, n_q - 200, B))
+    lane[1, :4] = torch.tensor([0, 0, n_ref - 1, n_ref + 50])
+    lane[3, :4] = torch.tensor([0, n_q - 5, 0, n_q + 9])
+    # a right extension on a chromosome shorter than a tile, at its start:
+    # the reversed ref tile's indices run below 0
+    lane[:3, 0] = torch.tensor([1, 0, 100])
+    curr[0, 0] = 10
+    ref = torch.from_numpy(rng.integers(0, 5, n_ref).astype(np.uint8))
+    query = torch.from_numpy(rng.integers(0, 5, n_q).astype(np.uint8))
+    return lane, curr, ref, query
+
+
+@pytest.mark.parametrize("stop_thr", [0, 320])
+def test_next_tiles_twin_gathers_spec_next_requests(records, stop_thr):
+    """The wrapper's CPU twin: spec_next's requests, the tiles
+    gather_tiles cuts for them (clamps included) and their sizes; the
+    kernel's transcription gives every byte of the same."""
+    rng = np.random.default_rng(100 + stop_thr)
+    B = records.shape[1]
+    lane, curr, ref, query = _gather_case(rng, B, 9000, 7000)
+    before = dict(gact_cuda.LAUNCHES)
+    req, qtile, rtile, sizes = gact_cuda.next_tiles(
+        records, lane, curr, ref, query, T, stop_thr, MAX_OPS)
+    assert gact_cuda.LAUNCHES == before          # the twin launches nothing
+    want = gact.spec_next(records, lane, curr, T, stop_thr, MAX_OPS)
+    assert torch.equal(req, want)
+    wq, wr = dispatch.gather_tiles(ref, query, want[0], want[1], want[2],
+                                   want[3], lane[0] != 0, T, T)
+    assert torch.equal(qtile, wq) and torch.equal(rtile, wr)
+    assert sizes.dtype == torch.int32 and torch.equal(
+        sizes, torch.stack([want[3], want[1], want[3] - 1,
+                            want[1] - 1]).int())
+    k_req, k_q, k_r, k_sizes = _warp_next(records, lane, curr, ref.numpy(),
+                                          query.numpy(), stop_thr, MAX_OPS)
+    np.testing.assert_array_equal(k_req, req.numpy())
+    np.testing.assert_array_equal(k_q, qtile.numpy())
+    np.testing.assert_array_equal(k_r, rtile.numpy())
+    np.testing.assert_array_equal(k_sizes, sizes.numpy())
+    # the clamps fired: indices below 0 and past both buffers' ends
+    rev = lane[0] != 0
+    lo_r = torch.where(rev, req[0] + req[1] - T, req[0])
+    hi_r = torch.where(rev, req[0] + req[1] - 1, req[0] + T - 1)
+    hi_q = torch.where(rev, req[2] + req[3] - 1, req[2] + T - 1)
+    assert (lo_r < 0).any() and (hi_r >= 9000).any() and (hi_q >= 7000).any()
+
+
+def test_patch_is_free_of_bank_conflicts():
+    """The staged patch's layout: each warp's staging store and each walk
+    step's load touch 32 distinct shared-memory banks."""
+    g = np.arange(THREADS * STAGE)
+    addr = (g % LANES_PER_BLOCK) * PSTRIDE + g // LANES_PER_BLOCK
+    for warp in addr.reshape(-1, WARP):
+        assert len(set(warp % 32)) == WARP
+    for wi in range(LANES_PER_BLOCK):
+        for s0 in range(0, CHUNK_ROWS, WARP):
+            reads = wi * PSTRIDE + s0 + np.arange(WARP)
+            assert len(set(reads % 32)) == WARP
+    assert len(set(addr)) == addr.size                # no two in one word
+    assert addr.max() < LANES_PER_BLOCK * PSTRIDE
+
+
+def test_next_tiles_checks_inputs_and_empty_batch(records, monkeypatch):
+    rng = np.random.default_rng(3)
+    lane, curr, ref, query = _gather_case(rng, records.shape[1], 900, 700)
+    with pytest.raises(TypeError):
+        gact_cuda.next_tiles(records, lane, curr, ref.int(), query, T, 0,
+                             MAX_OPS)
+    with pytest.raises(ValueError):
+        gact_cuda.next_tiles(records, lane[:4], curr, ref, query, T, 0,
+                             MAX_OPS)
+    with pytest.raises(ValueError):
+        gact_cuda.next_tiles(records, lane, curr, ref[::2], query, T, 0,
+                             MAX_OPS)
+
+    def never(*_, **__):
+        raise AssertionError("an empty batch reached a kernel or a twin")
+    from darwin_tpu_torch.ops import build
+    monkeypatch.setattr(build, "load", never)
+    monkeypatch.setattr(gact, "spec_next_tiles", never)
+    req, q, r, sizes = gact_cuda.next_tiles(
+        records[:, :0], lane[:, :0], curr[:, :0], ref, query, T, 0, MAX_OPS)
+    assert (req.shape, q.shape, r.shape, sizes.shape) == (
+        (8, 0), (0, T), (0, T), (4, 0))
+    assert (req.dtype, q.dtype, sizes.dtype) == (torch.int64, torch.uint8,
+                                                 torch.int32)
 
 
 # ----------------------------------------------- (b) the speculative dispatch
