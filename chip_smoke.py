@@ -41,11 +41,24 @@ Phases (each prints its lines; any failure raises, so the exit is nonzero):
   8. the op-rate probe through its own entry point;
   9. the cases of phases 5 and 7 again without speculation, one read batch
      at a time (spec_k=1, pipeline_depth=1): SAM / MHAP and the counter
-     block identical to the defaults', and more extension rounds.
-Phases 5-7 and 9 print the align phase's reads/s, the extension GCUPS, the
-chains' hits, misses and rounds and the stage seconds of run()'s
+     block identical to the defaults', and more extension rounds;
+ 10. a chr21-size (46.7 Mbp) repeat genome, reference-guided, 512 reads of
+     ONT-like lengths and errors plus 16 across a planted deletion: the
+     pairs table (automatic method) and the csr table the same bucket for
+     bucket, the CLI with --index-layout=pairs and =csr giving the same SAM
+     and counter block, the occupancy cap and the large tiles live, >= 90%
+     of reads on their locus;
+ 11. GRCh38's coordinate space (24 chromosomes at their lengths, 3.09 Gbp,
+     uniform random bases): the csr index at k = 14, w = 3, the pairs
+     table by the automatic method (the streaming build) the same bucket
+     for bucket, and 72 reads of 10 kb, 64 of them past 2^31, aligned with
+     the csr table: >= 95% on their locus.
+Phases 10 and 11 print each index build's passes, seconds, seeds and peak
+device memory, and fail if a build fell back to the host.
+Phases 5-7, 9 and 10 print the align phase's reads/s, the extension GCUPS,
+the chains' hits, misses and rounds and the stage seconds of run()'s
 stats_out.  Every kernel's launch count is set to 0 just before each of
-the runs of phases 5-9 and read just after; a kernel its path never
+the runs of phases 5-11 and read just after; a kernel its path never
 launched fails.
 The line before the last is the kernels' JSON summary, preceded by the
 card's name and power limit; the last line is {"ok": true, "device":
@@ -811,12 +824,13 @@ def phase_parity(seed):
           "the generic scoring changed no alignment")
 
 
-def _run_cli(phase, argv, tmp, n_reads, smi, **run_kw):
+def _run_cli(phase, argv, tmp, n_reads, smi, into=None, **run_kw):
     """One CLI run in ``tmp`` (where its params.cfg is read), in-process
     so the kernel launch counts of exactly this run are read: every count
     is set to 0 just before and read just after.  ``run_kw`` go to run()
-    (spec_k, pipeline_depth).  Returns (stdout, counter block, launches,
-    chains)."""
+    (spec_k, pipeline_depth).  Fails if the index build fell back to the
+    host.  Returns (stdout, counter block, launches, chains); ``into`` (a
+    dict) also gets run()'s stats_out and the stderr text."""
     from darwin_tpu_torch import cli
     from darwin_tpu_torch.ops import dispatch, gact_cuda
     out, err = io.StringIO(), io.StringIO()
@@ -839,6 +853,10 @@ def _run_cli(phase, argv, tmp, n_reads, smi, **run_kw):
         os.chdir(cwd)
     check(rc == 0, f"cli exited {rc}")
     err_text = err.getvalue()
+    check("falling back to the host build" not in err_text,
+          "the index build fell back to the host")
+    if into is not None:
+        into.update(stats, err=err_text)
     blk = _counter_block(err_text)
     chains = _chains(err_text)
     m = re.search(r"finalizing seed position table\): (\d+) msec",
@@ -855,6 +873,7 @@ def _run_cli(phase, argv, tmp, n_reads, smi, **run_kw):
     say(phase, f"kernel launches in this run: {launches}")
     say(phase, f"index {index_s:.3f} s, align {align_s:.3f} s, cli wall "
                f"{wall:.1f} s: {n_reads / align_s:.1f} reads/s [{smi}]")
+    say(phase, "index build: " + _build_line(stats["index_build"]))
     say(phase, f"speculative chains: {hits} hits, {misses} misses, hit "
                f"rate {hits / max(hits + misses, 1):.4f}; {rounds} "
                f"extension rounds")
@@ -873,6 +892,17 @@ def _run_cli(phase, argv, tmp, n_reads, smi, **run_kw):
     return out.getvalue(), blk, launches, chains
 
 
+def _build_line(b):
+    """One line of a SeedTable's build_stats."""
+    from darwin_tpu_torch.index.minimizers import ROWS
+    keys = ("count_pass_s", "scan_pass_s")
+    return (f"{b['layout']} by {b['method']}"
+            + "".join(f", {k} {b[k]:.3f}" for k in keys if k in b)
+            + f", {b['batches']} scan batches of <= {ROWS} rows for "
+            f"{b['rows']} rows, {b['sequences_per_batch']:.1f} sequences "
+            f"per batch")
+
+
 def _took(kstats, launches, names):
     """Record a path's launch counts; each named kernel must have run."""
     for k in names:
@@ -884,18 +914,10 @@ def _took(kstats, launches, names):
 DEFAULT_PATH = ["gact_dp", "gact_tb", "gact_next"]
 
 
-def phase_real(phase, seed, kstats, smi, params_cfg, min_share, tmp):
-    """Reference-guided mode at real size through the CLI: the E. coli
-    K-12-size case in ``tmp`` (written there if it is not), with the
-    default scoring (phase 5) or the generic params.cfg (phase 6, path
-    A).  Returns (SAM, counter block, chains)."""
-    from darwin_tpu_torch.utils import synth
-    truth = _case(tmp, "ecoli", seed)
-    if params_cfg:
-        with open(f"{tmp}/params.cfg", "w") as f:
-            f.write(params_cfg)
-    sam, blk, launches, chains = _run_cli(phase, ["ref.fa", "reads.fa", "0"],
-                                          tmp, len(truth), smi)
+def _locus_share(phase, sam, truth, what):
+    """Share of the simulated reads with a SAM record within 200 bp of
+    their origin on the right chromosome; every CIGAR must span its read.
+    Prints the share and the reads that missed (the first 20)."""
     best = {}
     where = {n: [] for n in truth}
     n_rec = 0
@@ -915,17 +937,36 @@ def phase_real(phase, seed, kstats, smi, params_cfg, min_share, tmp):
                            f"{ref_bp} ref bp aligned" if f[2] == chrom
                            else f"on {f[2]}")
     share = len(best) / len(truth)
-    large = int(next(ln for ln in blk if ln.startswith("#large tiles"))
-                .split(":")[1])
-    say(phase, f"{len(truth)} reads vs {synth.ECOLI_LEN} bp: {n_rec} SAM "
-               f"records; {len(best)}/{len(truth)} = {share:.4f} reads on "
-               f"the true locus (+-200 bp)")
-    for n in sorted(set(truth) - set(best)):
+    say(phase, f"{len(truth)} reads vs {what}: {n_rec} SAM records; "
+               f"{len(best)}/{len(truth)} = {share:.4f} reads on the true "
+               f"locus (+-200 bp)")
+    for n in sorted(set(truth) - set(best))[:20]:
         say(phase, f"not within 200 bp: {n}: "
                    + ("; ".join(where[n]) or "no record"))
+    return share
+
+
+def _large_tiles(blk):
+    return int(next(ln for ln in blk if ln.startswith("#large tiles"))
+               .split(":")[1])
+
+
+def phase_real(phase, seed, kstats, smi, params_cfg, min_share, tmp):
+    """Reference-guided mode at real size through the CLI: the E. coli
+    K-12-size case in ``tmp`` (written there if it is not), with the
+    default scoring (phase 5) or the generic params.cfg (phase 6, path
+    A).  Returns (SAM, counter block, chains)."""
+    from darwin_tpu_torch.utils import synth
+    truth = _case(tmp, "ecoli", seed)
+    if params_cfg:
+        with open(f"{tmp}/params.cfg", "w") as f:
+            f.write(params_cfg)
+    sam, blk, launches, chains = _run_cli(phase, ["ref.fa", "reads.fa", "0"],
+                                          tmp, len(truth), smi)
+    share = _locus_share(phase, sam, truth, f"{synth.ECOLI_LEN} bp")
     check(share >= min_share,
           f"only {share:.4f} of reads on the true locus")
-    check(large > 0, "no large tiles fired")
+    check(_large_tiles(blk) > 0, "no large tiles fired")
     check(chains[0] > 0, "no speculative tile was accepted")
     _took(kstats, launches, DEFAULT_PATH)
     return sam, blk, chains
@@ -935,7 +976,8 @@ def _case(tmp, name, seed):
     """Write phase 5's (``ecoli``) or phase 7's (``overlap``) real-size
     case into ``tmp`` unless it is there; returns its truth."""
     from darwin_tpu_torch.utils import synth
-    make = synth.ecoli_case if name == "ecoli" else synth.overlap_case
+    make = {"ecoli": synth.ecoli_case, "overlap": synth.overlap_case,
+            "chr21": synth.chr21_case}[name]
     path = f"{tmp}/truth.json"
     if not os.path.exists(path):
         truth = make(seed, tmp)
@@ -975,9 +1017,14 @@ def phase_overlap(seed, kstats, smi, tmp_real):
 
     min_overlap = Config().min_overlap
     truth = _case(tmp_real, "overlap", seed)
+    stats = {}
     mhap, blk, launches, chains = _run_cli(
-        7, ["reads.fa", "reads.fa", "1"], tmp_real, len(truth), smi)
+        7, ["reads.fa", "reads.fa", "1"], tmp_real, len(truth), smi,
+        into=stats)
     check(not mhap.startswith("@"), "overlap mode printed a SAM header")
+    # the read index is one work list: a handful of device batches
+    check(stats["index_build"]["batches"] <= 4,
+          f"the read index took {stats['index_build']['batches']} batches")
 
     def span(a, b):
         (s1, e1, _), (s2, e2, _) = truth[a], truth[b]
@@ -1084,12 +1131,180 @@ def phase_k1(seed, kstats, smi, dirs, results):
         _took(kstats, launches, ["gact_dp", "gact_tb"])
 
 
+# ---------------------------------------------------------------- 10, 11
+
+def _built(phase, what, store, cfg, **kw):
+    """build_seed_table on the card, timed, with the device memory it
+    allocated past what was held before it; fails if it fell back to the
+    host, or if an all-candidates build took more than the gate priced."""
+    from darwin_tpu_torch.index import minimizers as mz
+    from darwin_tpu_torch.index.seed_table import build_seed_table
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        t = build_seed_table(store, cfg, "cuda", **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - held
+    b = t.build_stats
+    check("falling back" not in err.getvalue() and "fallback" not in b,
+          f"{what}: the device build fell back to the host")
+    table_bytes = sum(x.numel() * x.element_size() for x in (
+        t.sorted_hashes, t.positions, t.bucket_offsets) if x is not None)
+    lengths = [c.length_unpadded for c in store.chromosomes]
+    k, w = cfg.seed_size, cfg.minimizer_window
+    scanned = len(mz.work_list(lengths, k)[0]) * (mz.row_len(k, w) - k + 1)
+    passes = {"csr": "fill", "stream": "sort"}.get(b["method"])
+    first = b.get("count_pass_s", b.get("scan_pass_s"))
+    say(phase, f"{what}: {t.num_seeds} seeds "
+               f"({t.num_seeds / store.size:.4f} per position), table "
+               f"{table_bytes / 2**30:.2f} GiB; {secs:.3f} s"
+               + (f" ({passes} pass {secs - first:.3f} s)" if passes
+                  else "")
+               + f"; peak device memory past the {held / 2**30:.2f} GiB "
+               f"held {peak / 2**30:.2f} GiB = {peak / scanned:.1f} B per "
+               f"scanned position ({scanned} positions); "
+               + _build_line(b))
+    if b["method"] == "device":
+        gate = mz.device_build_bytes(lengths, k, w)
+        check(peak <= gate, f"{what}: the all-candidates build took "
+              f"{peak} B, past the gate's {gate} B")
+    return t
+
+
+def _same_buckets(pairs, csr):
+    """The two layouts hold the same buckets: the same positions in the
+    same order, and csr's offsets are the bucket boundaries of the pairs
+    table's hashes."""
+    check(torch.equal(pairs.positions, csr.positions),
+          "pairs and csr positions differ")
+    nb = csr.bucket_offsets.numel() - 1
+    dev = pairs.positions.device
+    bounds = torch.searchsorted(
+        pairs.sorted_hashes, torch.arange(nb + 1, dtype=torch.int32,
+                                          device=dev))
+    check(torch.equal(bounds.to(torch.int32), csr.bucket_offsets),
+          "csr offsets are not the pairs table's bucket boundaries")
+
+
+def phase_chr21(seed, kstats, smi, tmp):
+    """A chr21-size repeat genome, reference-guided, at run()'s defaults:
+    the pairs table (automatic method) and the csr table bucket for
+    bucket, then the CLI with each layout, whose SAM and counter block
+    must be the same, the occupancy cap and the large tiles live."""
+    from darwin_tpu_torch.config import Config
+    from darwin_tpu_torch.io.fasta import load_genome
+    from darwin_tpu_torch.utils import synth
+    t0 = time.perf_counter()
+    truth = _case(tmp, "chr21", seed)
+    store = load_genome(f"{tmp}/ref.fa")
+    say(10, f"case written and loaded in {time.perf_counter() - t0:.1f} s: "
+            f"{store.size} bp coordinate space, {len(truth)} reads")
+    cfg = Config()
+    pairs = _built(10, "pairs (automatic method)", store, cfg)
+    csr = _built(10, "csr", store, cfg, layout="csr")
+    _same_buckets(pairs, csr)
+    say(10, "pairs and csr tables: the same buckets, positions and order")
+    del pairs, csr
+    runs = {}
+    for layout in ("pairs", "csr"):
+        stats = {}
+        sam, blk, launches, chains = _run_cli(
+            10, ["ref.fa", "reads.fa", "0", f"--index-layout={layout}"],
+            tmp, len(truth), smi, into=stats)
+        check(stats["index_build"]["layout"] == layout,
+              f"--index-layout={layout} built {stats['index_build']}")
+        runs[layout] = (sam, blk, stats["counters"])
+        _took(kstats, launches, DEFAULT_PATH)
+    check(runs["pairs"][:2] == runs["csr"][:2],
+          "the SAM or the counter block differs between the layouts")
+    sam, blk, c = runs["csr"]
+    share = _locus_share(10, sam, truth,
+                         f"a {synth.CHR21_LEN} bp repeat genome")
+    say(10, f"--index-layout=pairs and =csr: SAM ({len(sam)} bytes) and "
+            f"counter block identical; {c['num_capped_buckets']} of "
+            f"{c['num_queried_buckets']} queried buckets over the "
+            f"occupancy cap, {_large_tiles(blk)} large tiles")
+    check(c["num_capped_buckets"] > 0, "the occupancy cap never bit")
+    check(_large_tiles(blk) > 0, "no large tiles fired")
+    check(share >= MIN_REPEAT_LOCUS_SHARE,
+          f"only {share:.4f} of reads on the true locus")
+
+
+def phase_human(seed, kstats, smi):
+    """GRCh38's coordinate space (3.09 Gbp, 24 chromosomes): the csr index
+    at k = 14, w = 3, the pairs table by the automatic method against it,
+    and reads from the chromosomes past 2^31 aligned with the csr
+    table."""
+    import resource
+    from darwin_tpu_torch.config import Config
+    from darwin_tpu_torch.genome import make_read
+    from darwin_tpu_torch.index.minimizers import device_build_bytes
+    from darwin_tpu_torch.index.seed_table import device_build_fits
+    from darwin_tpu_torch.ops import gact_cuda
+    from darwin_tpu_torch.pipeline import align
+    from darwin_tpu_torch.utils import synth
+    t0 = time.perf_counter()
+    store, sim = synth.human_scale_case(seed + 11)
+    check(store.chromosomes[13].start >= 1 << 31, "chr14 starts below 2^31")
+    say(11, f"{len(store.chromosomes)} chromosomes, {store.size} bp "
+            f"coordinate space, {len(sim)} reads, made in "
+            f"{time.perf_counter() - t0:.1f} s")
+    cfg = Config()
+    csr = _built(11, f"csr, k={cfg.seed_size}, w={cfg.minimizer_window}",
+                 store, cfg, layout="csr")
+    torch.cuda.empty_cache()
+    lengths = [c.length_unpadded for c in store.chromosomes]
+    k, w = cfg.seed_size, cfg.minimizer_window
+    fits = device_build_fits(lengths, k, w, torch.device("cuda", 0))
+    say(11, f"all-candidates build would need "
+            f"{device_build_bytes(lengths, k, w) / 2**30:.0f} GiB: "
+            f"{'fits' if fits else 'past the gate'}")
+    pairs = _built(11, "pairs (automatic method)", store, cfg)
+    check(pairs.build_stats["method"] == "stream",
+          f"the automatic method took {pairs.build_stats['method']}")
+    _same_buckets(pairs, csr)
+    say(11, "pairs and csr tables: the same buckets, positions and order")
+    del pairs
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    aligner = align.Aligner(cfg, store, table=csr, device="cuda")
+    reads = [make_read(n, q) for n, q, _ in sim]
+    truth = {n: t for n, _, t in sim}
+    init_s = time.perf_counter() - t0
+    gact_cuda.reset_launches()
+    t0 = time.perf_counter()
+    lines = aligner.align_batch(reads)
+    torch.cuda.synchronize()
+    align_s = time.perf_counter() - t0
+    launches = dict(gact_cuda.LAUNCHES)
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    sam = "".join(lines)
+    share = _locus_share(11, sam, truth, f"a {store.size} bp coordinate "
+                                         f"space")
+    far = sum(1 for n, (c, _, _) in truth.items() if c != "chr1")
+    say(11, f"aligned with the csr table: aligner set-up {init_s:.1f} s, "
+            f"align {align_s:.2f} s = {len(reads) / align_s:.1f} reads/s "
+            f"({far} reads past 2^31); kernel launches {launches}; host "
+            f"peak RSS {rss:.1f} GiB [{smi}]")
+    check(share >= MIN_LOCUS_SHARE,
+          f"only {share:.4f} of reads on the true locus")
+    _took(kstats, launches, DEFAULT_PATH)
+
+
 # ---------------------------------------------------------------- main
 
-ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9}
+ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11}
 # measured on a correct run: the generic scoring's cheap gap opens change
 # CIGARs, not loci
 MIN_LOCUS_SHARE = 0.95
+# a repeat genome's segmental duplications (2% diverged) and repeat-dense
+# reads leave some reads with a better or an equal locus elsewhere
+MIN_REPEAT_LOCUS_SHARE = 0.90
 
 
 def main(argv=None):
@@ -1137,6 +1352,11 @@ def main(argv=None):
             phase_probe(kstats, smi)
         if 9 in phases:
             phase_k1(args.seed, kstats, smi, dirs, results)
+        if 10 in phases:
+            with tempfile.TemporaryDirectory() as tmp:
+                phase_chr21(args.seed, kstats, smi, tmp)
+    if 11 in phases:
+        phase_human(args.seed, kstats, smi)
     if phases != ALL_PHASES:
         return 0
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",

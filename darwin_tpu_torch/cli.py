@@ -2,7 +2,8 @@
 (software/main.cpp:168-171):
 
     python -m darwin_tpu_torch.cli <REFERENCE>.fasta <READS>.fasta <0|1> \
-        [--device=cuda|cpu] [--index-cache=FILE.npz] [--profile=DIR]
+        [--device=cuda|cpu] [--index-cache=FILE.npz]
+        [--index-layout=pairs|csr] [--profile=DIR]
 
 ``0`` is reference-guided mode (SAM on stdout), ``1`` overlap mode (both
 files are reads, usually the same file; MHAP on stdout).  Reads
@@ -11,8 +12,10 @@ schema); progress and counters go to stderr.  The device defaults to
 ``cuda`` and the run fails without one; ``cpu`` runs the kernels' plain
 twins and is meant for tests.  ``--index-cache`` loads the seed table from
 FILE when it matches the reference and the config, else builds it and
-writes it there; ``--profile`` writes a torch.profiler trace of the run
-to DIR/trace.json (darwin_tpu/cli.py's flags of the same names).
+writes it there; ``--index-layout`` builds that seed-table layout (a
+cache of the other layout is then rebuilt; without it pairs is built and
+a cache of either is taken); ``--profile`` writes a torch.profiler trace
+of the run to DIR/trace.json (darwin_tpu/cli.py's flags of the same names).
 """
 
 from __future__ import annotations
@@ -25,7 +28,8 @@ from darwin_tpu_torch.pipeline.align import run
 
 USAGE = ("Usage: python -m darwin_tpu_torch.cli <REFERENCE>.fasta "
          "<READS>.fasta OVERLAP(0/1) [--device=cuda|cpu] "
-         "[--index-cache=FILE.npz] [--profile=DIR]")
+         "[--index-cache=FILE.npz] [--index-layout=pairs|csr] "
+         "[--profile=DIR]")
 
 
 def main(argv=None, **run_kwargs):
@@ -35,6 +39,7 @@ def main(argv=None, **run_kwargs):
     argv = sys.argv[1:] if argv is None else argv
     device = "cuda"
     index_cache = None
+    layout = None
     profile_dir = None
     rest = []
     for a in argv:
@@ -42,6 +47,12 @@ def main(argv=None, **run_kwargs):
             device = a.split("=", 1)[1]
         elif a.startswith("--index-cache="):
             index_cache = a.split("=", 1)[1]
+        elif a.startswith("--index-layout="):
+            layout = a.split("=", 1)[1]
+            if layout not in ("pairs", "csr"):
+                print(f"unknown index layout {layout!r}\n{USAGE}",
+                      file=sys.stderr)
+                return 1
         elif a.startswith("--profile="):
             profile_dir = a.split("=", 1)[1]
         elif a.startswith("--"):
@@ -58,7 +69,8 @@ def main(argv=None, **run_kwargs):
         cfg = load_config("params.cfg", do_overlap=overlap)
     else:
         cfg = Config()
-    kw = dict(cfg=cfg, device=device, index_cache=index_cache, **run_kwargs)
+    kw = dict(cfg=cfg, device=device, index_cache=index_cache,
+              index_layout=layout, **run_kwargs)
     if not profile_dir:
         run(ref_path, reads_path, overlap, **kw)
         return 0

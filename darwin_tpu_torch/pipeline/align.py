@@ -9,7 +9,8 @@ GACT tiles + host decode) -> SAM (reference-guided) or MHAP (overlap).
 stdout and the 7-line counter block are byte-identical to darwin_tpu's,
 at any speculative chain depth and any number of batches in flight.
 
-Not ported yet: the csr index layout, meshes and multi-host runs.
+The seed table is either layout (``index_layout``, ``--index-layout``);
+both give the same output.  Not ported yet: meshes and multi-host runs.
 """
 
 from __future__ import annotations
@@ -75,14 +76,17 @@ class Aligner:
 
     def __init__(self, cfg: Config, store: GenomeStore,
                  table: SeedTable | None = None, device="cuda",
-                 spec_k: int = SPEC_K):
+                 spec_k: int = SPEC_K, index_layout: str = "pairs"):
+        """index_layout: the layout of the table built when ``table`` is
+        None, 'pairs' or 'csr' (index.seed_table.SeedTable)."""
         if spec_k < 1:
             raise ValueError(f"spec_k must be >= 1: {spec_k}")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.store = store
         self.spec_k = spec_k
-        self.table = table or build_seed_table(store, cfg, self.device)
+        self.table = table or build_seed_table(store, cfg, self.device,
+                                               layout=index_layout)
         if self.table.positions.device != self.device:
             raise ValueError(f"seed table is on {self.table.positions.device}"
                              f", the aligner on {self.device}")
@@ -190,15 +194,17 @@ class Aligner:
         return lines
 
 
-def _load_index(index_cache, store, cfg, dev, err):
-    """The seed table in ``index_cache`` when it matches the reference and
-    the config (darwin_tpu/pipeline/align.py:420-433), else None."""
+def _load_index(index_cache, store, cfg, dev, err, index_layout):
+    """The seed table in ``index_cache`` when it matches the reference,
+    the config and the layout asked for, if any (darwin_tpu/pipeline/
+    align.py:420-433), else None."""
     if index_cache is None or not os.path.exists(index_cache):
         return None
     table = SeedTable.load(index_cache, device=dev)
     if (table.kmer_size != cfg.seed_size
             or table.minimizer_window != cfg.minimizer_window
-            or table.ref_size != store.size):
+            or table.ref_size != store.size
+            or index_layout not in (None, table.layout)):
         print(f"index cache {index_cache} does not match the "
               "reference/config; rebuilding", file=err)
         return None
@@ -232,7 +238,7 @@ def run(ref_path: str, reads_path: str, do_overlap: bool,
         cfg: Config | None = None, out=None, err=None,
         reads_per_batch: int = 128, device="cuda", pipeline_depth: int = 2,
         index_cache: str | None = None, stats_out: dict | None = None,
-        spec_k: int = SPEC_K) -> dict:
+        spec_k: int = SPEC_K, index_layout: str | None = None) -> dict:
     """Align ``reads_path`` against ``ref_path`` on ``device``; SAM
     (``do_overlap`` false) or MHAP (true; ``ref_path`` is then a reads
     file too, usually the same one) to ``out``, progress and counters to
@@ -243,15 +249,20 @@ def run(ref_path: str, reads_path: str, do_overlap: bool,
     another waits for the card (utils.turns); output and counters are
     collected in submission order, so they are the same at any depth.
     spec_k: tiles per speculative extension chain (1: none); outputs are
-    the same at any depth.  index_cache: an .npz seed table, loaded when
-    it matches the reference and ``seed_size`` / ``minimizer_window``,
-    else built and written there.  stats_out: filled with ``align_seconds``,
+    the same at any depth.  index_layout: 'pairs' or 'csr' builds that
+    seed-table layout; None builds pairs and takes a cache of either.
+    index_cache: an .npz seed table, loaded when it matches the reference,
+    ``seed_size`` / ``minimizer_window`` and the layout asked for, else
+    built and written there.  stats_out: filled with ``align_seconds``,
+    ``index_seconds``, ``index_build`` (the table's ``build_stats``),
     ``stage_seconds`` (``Aligner.stage_seconds``), ``stage_seconds_cold``
     (the first batch), ``stage_seconds_warm`` (the rest), ``counters`` and
     ``compile_s`` (seconds this process spent building the native and the
     CUDA libraries)."""
     if pipeline_depth < 1:
         raise ValueError(f"pipeline_depth must be >= 1: {pipeline_depth}")
+    if index_layout not in (None, "pairs", "csr"):
+        raise ValueError(f"unknown index layout {index_layout!r}")
     dev = resolve_device(device)
     out = out or sys.stdout
     err = err or sys.stderr
@@ -267,8 +278,9 @@ def run(ref_path: str, reads_path: str, do_overlap: bool,
 
     print("Finalizing seed position table ...", file=err)
     t0 = time.time()
-    table = _load_index(index_cache, store, cfg, dev, err)
-    aligner = Aligner(cfg, store, table=table, device=dev, spec_k=spec_k)
+    table = _load_index(index_cache, store, cfg, dev, err, index_layout)
+    aligner = Aligner(cfg, store, table=table, device=dev, spec_k=spec_k,
+                      index_layout=index_layout or "pairs")
     if index_cache is not None and table is None:
         aligner.table.save(index_cache)
         print(f"Seed table saved to {index_cache}", file=err)
@@ -335,6 +347,8 @@ def run(ref_path: str, reads_path: str, do_overlap: bool,
         total = aligner.stage_seconds
         cold = aligner.stage_seconds_cold
         stats_out["align_seconds"] = align_s
+        stats_out["index_seconds"] = index_s
+        stats_out["index_build"] = dict(aligner.table.build_stats)
         stats_out["stage_seconds"] = dict(total)
         stats_out["stage_seconds_cold"] = dict(cold)
         stats_out["stage_seconds_warm"] = {

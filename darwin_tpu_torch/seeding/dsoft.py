@@ -4,8 +4,9 @@ SeedPosTable::DSOFT, software/seed_pos_table.cpp:252-553).
 1. minimizer scan of each query row and the stride schedule over the
    minimizer ordinal (the first num_seeds + 2 queried, then every
    max_stride-th in reference-guided mode, none in overlap mode);
-2. bucket ranges by ``torch.searchsorted`` (darwin_tpu's prefix LUT only
-   accelerates the same bisect), buckets over ``max_occ`` skipped;
+2. bucket ranges by ``torch.searchsorted`` in a pairs table (darwin_tpu's
+   prefix LUT only accelerates the same bisect) or two gathers of a csr
+   table's bucket offsets, buckets over ``max_occ`` skipped;
 3. hits packed ragged-flat, kept when hit >= query offset, binned by
    (hit - offset) // bin_size;
 4. a stable sort by (bin, offset), the per-bin unique-base count with one
@@ -21,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from darwin_tpu_torch.index.minimizers import minimizer_scan
+from darwin_tpu_torch.index.minimizers import minimizer_scan, widen
 
 I32MAX = 2**31 - 1
 NO_BIN = 0xFFFFFFFF            # unreachable by valid bins (pos < 2^32 - 1)
@@ -68,10 +69,17 @@ def _queried_minimizers(codes2, lengths, k, w, num_seeds, max_stride,
     return offs, qhash, offs < I32MAX
 
 
-def _bucket_ranges(sorted_hashes, qhash):
-    """(start, end) table ranges per queried hash."""
-    start = torch.searchsorted(sorted_hashes, qhash, side="left")
-    end = torch.searchsorted(sorted_hashes, qhash, side="right")
+def _bucket_ranges(sorted_hashes, qhash, bucket_offsets=None):
+    """(start, end) table ranges per queried hash: two gathers of the
+    csr offsets (darwin_tpu/seeding/dsoft.py:106-112), else two searches
+    of the pairs table's hashes (queried in their dtype, so the table is
+    never converted)."""
+    if bucket_offsets is not None:
+        return (bucket_offsets[qhash].to(torch.int64),
+                bucket_offsets[qhash + 1].to(torch.int64))
+    q = qhash.to(sorted_hashes.dtype)
+    start = torch.searchsorted(sorted_hashes, q, side="left")
+    end = torch.searchsorted(sorted_hashes, q, side="right")
     return start, end
 
 
@@ -105,7 +113,7 @@ def _bucket_hits_flat(positions, offs, start, end, slot_ok, max_occ,
     ok_slot = (bidx >= 0) & (j < total[:, None])
     n = positions.shape[0]
     gidx = (st + (j - sf)).clamp(0, max(n - 1, 0))
-    pos = positions[gidx] if n else torch.zeros_like(gidx)
+    pos = widen(positions[gidx]) if n else torch.zeros_like(gidx)
     hit_ok = ok_slot & (pos >= of)
     binf = torch.where(hit_ok, torch.div(pos - of, bin_size,
                                          rounding_mode="floor"), NO_BIN)
@@ -176,24 +184,26 @@ def _hits_post(binf, offf, posf, n_queried_buckets, k, threshold, a_cap,
 
 
 def dsoft_count(codes2, lengths, sorted_hashes, *, k, w, num_seeds,
-                max_stride, overlap, max_occ, mq_cap):
+                max_stride, overlap, max_occ, mq_cap, bucket_offsets=None):
     """Exact hit-slot count per row (B,) — the sizing pre-pass: scan +
     bucket ranges only, no hit gather or sort."""
     offs, qhash, slot_ok = _queried_minimizers(
         codes2, lengths, k, w, num_seeds, max_stride, overlap, mq_cap)
-    start, end = _bucket_ranges(sorted_hashes, qhash.contiguous())
+    start, end = _bucket_ranges(sorted_hashes, qhash.contiguous(),
+                                bucket_offsets)
     cnt = end - start
     return torch.where(slot_ok & (cnt <= max_occ), cnt, 0).sum(1)
 
 
 def dsoft_device(codes2, lengths, sorted_hashes, positions, *, k, w,
                  num_seeds, max_stride, overlap, threshold, bin_size,
-                 max_occ, mq_cap, a_cap, hit_cap):
+                 max_occ, mq_cap, a_cap, hit_cap, bucket_offsets=None):
     """Batched D-SOFT hit generation + anchor selection.
 
     codes2 (B, Lcap) uint8 2-bit query codes (0-padded rows, Lcap a
     multiple of 16); lengths (B,); sorted_hashes / positions: the
-    SeedTable arrays.  hit_cap: flat hit-slot width (dsoft_count gives the
+    SeedTable arrays (a csr table passes its bucket_offsets and None for
+    sorted_hashes).  hit_cap: flat hit-slot width (dsoft_count gives the
     exact need); a_cap: anchor slots (anchors beyond it are dropped).
 
     Returns a dict of device tensors: hits_bin/hits_off/hits_pos (B, H)
@@ -203,7 +213,8 @@ def dsoft_device(codes2, lengths, sorted_hashes, positions, *, k, w,
     n_capped (queried buckets over max_occ), each (B,)."""
     offs, qhash, slot_ok = _queried_minimizers(
         codes2, lengths, k, w, num_seeds, max_stride, overlap, mq_cap)
-    start, end = _bucket_ranges(sorted_hashes, qhash.contiguous())
+    start, end = _bucket_ranges(sorted_hashes, qhash.contiguous(),
+                                bucket_offsets)
     binf, offf, posf, bucket_ok, total = _bucket_hits_flat(
         positions, offs, start, end, slot_ok, max_occ, bin_size, hit_cap)
     res = _hits_post(binf, offf, posf, bucket_ok.sum(1), k, threshold,

@@ -65,7 +65,7 @@ class Seeder:
         kw = dict(k=cfg.seed_size, w=cfg.minimizer_window,
                   num_seeds=cfg.num_seeds, max_stride=cfg.max_stride,
                   overlap=cfg.do_overlap, max_occ=self.max_occ,
-                  mq_cap=mq_cap)
+                  mq_cap=mq_cap, bucket_offsets=self.table.bucket_offsets)
         need = dsoft_count(codes2, lengths, self.table.sorted_hashes, **kw)
         hit_cap = max(int(fetch(need.max())), 1)
         res = dsoft_device(codes2, lengths, self.table.sorted_hashes,

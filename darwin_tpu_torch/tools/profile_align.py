@@ -1,22 +1,25 @@
 """Where the align phase's time goes, on one CUDA card.
 
     python -m darwin_tpu_torch.tools.profile_align [--out DIR] \
-        [--case ecoli|ecoli_generic|overlap] [--spec-k K] [--pipeline-depth D]
+        [--case ecoli|ecoli_generic|overlap|chr21] [--spec-k K] \
+        [--pipeline-depth D] [--index-layout pairs|csr]
     python -m darwin_tpu_torch.tools.profile_align --chain-launches
 
 Writes one of ``chip_smoke.py``'s real-size cases (seed 0) — ``ecoli``:
 the E. coli K-12-size reference-guided case of phase 5
 (``utils.synth.ecoli_case``); ``ecoli_generic``: the same with the
 generic-scoring ``params.cfg`` of phase 6; ``overlap``: the reads-vs-reads
-case of phase 7 (``utils.synth.overlap_case``) — and aligns it ``RUNS``
+case of phase 7 (``utils.synth.overlap_case``); ``chr21``: the repeat
+genome of phase 10 (``utils.synth.chr21_case``) — and aligns it ``RUNS``
 times in one process through ``pipeline.align.run`` on ``cuda``, at
-run()'s defaults or the given speculative chain depth and batches in
-flight.  The first run is cold: it builds the kernels unless ``_build/``
-already holds them.
+run()'s defaults or the given speculative chain depth, batches in flight
+and index layout.  The first run is cold: it builds the kernels unless
+``_build/`` already holds them.
 
-Per run it prints the align phase's seconds and reads/s, the speculative
-chains' hits, misses and extension rounds, and the host seconds of each
-stage as ``run(..., stats_out=...)`` reports them (``Aligner.
+Per run it prints the index build's seconds (run()'s "finalizing seed
+position table" line), the align phase's seconds and reads/s, the
+speculative chains' hits, misses and extension rounds, and the host
+seconds of each stage as ``run(..., stats_out=...)`` reports them (``Aligner.
 stage_seconds``: ``read_upload``, ``seed``, ``filter``, ``extend``,
 ``print`` and the stages nested in them — ``seed_*`` in ``seed``,
 ``extend_*`` in ``extend``, ``ru_*`` in ``read_upload``).  With two read
@@ -34,7 +37,11 @@ of each kernel, their sum, the same by group (``gact_dp``, ``gact_tb``,
 ``gact_next``, copies, memsets, and the other — torch's — kernels, the
 largest of them named), and the card's busy share — the union of the
 device activity intervals over the wall time of ``run`` (index + align
-phase; the profiler's own host cost is in that wall time).
+phase; the profiler's own host cost is in that wall time).  A last run,
+one batch in flight and not timed, counts the torch ops that run on the
+card by the module of the package that called them (``OpsByModule``), so
+with another checkout's package first on ``PYTHONPATH`` it counts that
+checkout's.
 
 ``--chain-launches`` instead counts the device launches (kernels, copies,
 memsets) one speculative dispatch of 512 lanes enqueues, at K = 2 and
@@ -54,6 +61,7 @@ import gc
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -61,6 +69,7 @@ import time
 from contextlib import contextmanager
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from darwin_tpu_torch.config import Config, load_config
 from darwin_tpu_torch.ops import dispatch
@@ -126,6 +135,42 @@ def _busy_ms(events) -> float:
 GROUPS = (("gact_dp", "gact_dp_kernel"), ("gact_tb", "gact_tb_kernel"),
           ("gact_next", "gact_next_kernel"), ("copies", "Memcpy"),
           ("memsets", "Memset"))
+
+
+class OpsByModule(TorchDispatchMode):
+    """Counts the torch ops that run on ``device_type`` by the module of
+    this package whose code called them (the innermost frame under
+    ``darwin_tpu_torch/``); views and allocations, which launch nothing,
+    are not counted.  The profiler cannot give this split: it records the
+    ops of the thread that started it only, and ties few launches to a
+    Python frame.  Like any dispatch mode it sees the ops of the thread
+    that entered it, so the run it counts keeps one batch in flight."""
+
+    def __init__(self, device_type="cuda"):
+        super().__init__()
+        self.device_type = device_type
+        self.counts: dict = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func.is_view or str(func).startswith("aten.empty"):
+            return out
+        tensors = [t for t in (*args, *(kwargs or {}).values(),
+                               *(out if isinstance(out, (tuple, list))
+                                 else (out,)))
+                   if isinstance(t, torch.Tensor)]
+        if not any(t.device.type == self.device_type for t in tensors):
+            return out
+        where = "(no frame of the package)"
+        f = sys._getframe(1)
+        while f is not None:
+            name = f.f_code.co_filename.replace(os.sep, "/")
+            if "darwin_tpu_torch/" in name:
+                where = name.rsplit("darwin_tpu_torch/", 1)[1]
+                break
+            f = f.f_back
+        self.counts[where] = self.counts.get(where, 0) + 1
+        return out
 
 
 def group_of(name: str) -> str:
@@ -199,16 +244,21 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None,
                     help="directory for profile_table.txt")
     ap.add_argument("--case", default="ecoli",
-                    choices=("ecoli", "ecoli_generic", "overlap"))
+                    choices=("ecoli", "ecoli_generic", "overlap", "chr21"))
     ap.add_argument("--spec-k", type=int, default=dispatch.SPEC_K,
                     help="tiles per speculative chain (run()'s spec_k)")
     ap.add_argument("--pipeline-depth", type=int, default=2,
                     help="read batches in flight (run()'s pipeline_depth)")
+    ap.add_argument("--index-layout", default=None,
+                    choices=("pairs", "csr"),
+                    help="seed-table layout (run()'s index_layout)")
     ap.add_argument("--chain-launches", action="store_true",
                     help="only count one speculative dispatch's launches "
                          "per chain level")
     args = ap.parse_args(argv)
     path = dict(spec_k=args.spec_k, pipeline_depth=args.pipeline_depth)
+    if args.index_layout:
+        path["index_layout"] = args.index_layout
     if not torch.cuda.is_available():
         print("profile_align: no CUDA device", file=sys.stderr)
         return 2
@@ -236,6 +286,8 @@ def main(argv=None) -> int:
         if overlap:
             truth = synth.overlap_case(0, tmp)
             ref = reads
+        elif args.case == "chr21":
+            truth = synth.chr21_case(0, tmp)
         else:
             truth = synth.ecoli_case(0, tmp)
         if args.case == "ecoli_generic":
@@ -262,7 +314,11 @@ def main(argv=None) -> int:
                               err=err, device="cuda", stats_out=stats,
                               **path)
             row = run_row(stats, gc_acc, len(truth))
-            print(f"run {i}{' (profiled)' if last else ''}: align "
+            m = re.search(r"finalizing seed position table\): (\d+) msec",
+                          err.getvalue())
+            row["index_s"] = int(m.group(1)) / 1000
+            print(f"run {i}{' (profiled)' if last else ''}: index "
+                  f"{row['index_s']:.3f} s, align "
                   f"{row['align_s']:.3f} s -> {row['reads_per_s']:.1f} "
                   f"reads/s, ext. device ms {row['ext_device_ms']:.1f}; "
                   f"spec hits {row['spec_hits']}, misses "
@@ -272,6 +328,10 @@ def main(argv=None) -> int:
                 f"{k}={v:.3f}" for k, v in row["stages_s"].items()),
                 flush=True)
             summary["runs"].append(row)
+        with OpsByModule() as ops:
+            align.run(ref, reads, overlap, cfg=cfg, out=io.StringIO(),
+                      err=io.StringIO(), device="cuda",
+                      **dict(path, pipeline_depth=1))
     kernels = sorted((e for e in prof.key_averages()
                       if e.device_type == torch.autograd.DeviceType.CUDA),
                      key=lambda e: -e.self_device_time_total)
@@ -295,6 +355,11 @@ def main(argv=None) -> int:
                        {"name": e.key[:120], "count": e.count,
                         "self_ms": e.self_device_time_total / 1000}
                        for e in kernels[:12]], groups=groups)
+    print(f"   torch ops on the card by module, pipeline_depth=1 "
+          f"({sum(ops.counts.values())} in all): " + ", ".join(
+              f"{m} {n}" for m, n in sorted(ops.counts.items(),
+                                             key=lambda kv: -kv[1])))
+    summary["torch_ops_by_module"] = ops.counts
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "profile_table.txt"), "w") as f:

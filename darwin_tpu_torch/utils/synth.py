@@ -1,20 +1,35 @@
 """Synthetic inputs for runs on the card: random genomes, reads across a
-planted deletion, the E. coli K-12-size reference-guided case and the
-overlap case that ``chip_smoke.py`` and ``tools/profile_align.py`` align,
-and the generic-scoring ``params.cfg``.
+planted deletion, the E. coli K-12-size reference-guided case, the
+overlap case, the chr21-size repeat-genome case and the GRCh38-size
+coordinate space that ``chip_smoke.py`` and ``tools/profile_align.py``
+align, and the generic-scoring ``params.cfg``.
 
 Everything comes from a numpy seed; reads are simulated with
-``utils.simulate`` (numpy only)."""
+``utils.simulate`` and repeat genomes made by ``utils.synthgenome``
+(numpy only)."""
 
 from __future__ import annotations
 
 import numpy as np
 
 from darwin_tpu_torch.genome import GenomeStore, revcomp_bytes
-from darwin_tpu_torch.utils.simulate import mutate_read, simulate_reads, \
-    write_fasta
+from darwin_tpu_torch.utils.simulate import mutate_read, ont_lengths, \
+    simulate_reads, write_fasta
+from darwin_tpu_torch.utils.synthgenome import repeat_genome
 
 ECOLI_LEN = 4_641_652          # E. coli K-12 MG1655 (NC_000913.3)
+CHR21_LEN = 46_709_983         # GRCh38 chr21 (NC_000021.9)
+# GRCh38's primary-assembly chromosomes in bp, in karyotype order: chr14
+# and every later one start past 2^31 in this order; 3,088,269,832 bp
+GRCH38 = [
+    ("chr1", 248_956_422), ("chr2", 242_193_529), ("chr3", 198_295_559),
+    ("chr4", 190_214_555), ("chr5", 181_538_259), ("chr6", 170_805_979),
+    ("chr7", 159_345_973), ("chr8", 145_138_636), ("chr9", 138_394_717),
+    ("chr10", 133_797_422), ("chr11", 135_086_622), ("chr12", 133_275_309),
+    ("chr13", 114_364_328), ("chr14", 107_043_718), ("chr15", 101_991_189),
+    ("chr16", 90_338_345), ("chr17", 83_257_441), ("chr18", 80_373_285),
+    ("chr19", 58_617_616), ("chr20", 64_444_167), ("chr21", 46_709_983),
+    ("chr22", 50_818_468), ("chrX", 156_040_895), ("chrY", 57_227_415)]
 
 # A legal params.cfg whose gap opens are cheaper than its gap extends on
 # both lanes, everything else default: darwin_tpu's tile DP takes its
@@ -90,3 +105,59 @@ def overlap_case(seed: int, directory: str, genome_len: int = 500_000,
     write_fasta(f"{directory}/reads.fa", sim)
     return {n: (start, start + read_len, strand)
             for n, _, (_, start, strand) in sim}
+
+
+def chr21_case(seed: int, directory: str) -> dict:
+    """Write ``ref.fa`` and ``reads.fa`` of the chr21-size case into
+    ``directory``: a ``repeat_genome`` of GRCh38 chr21's length at its
+    default repeat fractions, 512 simulated reads of ONT-like lengths
+    (``ont_lengths``: mean 10 kb, log-normal sigma 0.55, 1-40 kb) with an
+    ONT error profile (0.03 / 0.03 / 0.04), both strands, and 16 reads
+    across a planted 1.5 kb deletion.  Returns {read name: (chrom, start0,
+    strand)}."""
+    rng = np.random.default_rng(seed)
+    bases, _ = repeat_genome(rng, CHR21_LEN)
+    store = GenomeStore.from_numpy(["chr21_repeat_synthetic"], [bases])
+    sim = simulate_reads(store, 512, 10_000, seed=seed + 3,
+                         error=(0.03, 0.03, 0.04),
+                         read_lens=ont_lengths(rng, 512))
+    sim += planted_deletions(rng, store, 16)
+    write_reference(f"{directory}/ref.fa", store)
+    write_fasta(f"{directory}/reads.fa", sim)
+    return {n: t for n, _, t in sim}
+
+
+def uniform_bases(rng, n: int) -> np.ndarray:
+    """``n`` uniform random ACGT bytes, four from each random byte."""
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    quad = np.ascontiguousarray(
+        acgt[(np.arange(256)[:, None] >> np.arange(0, 8, 2)) & 3])
+    r = rng.integers(0, 256, (n + 3) // 4, dtype=np.uint8)
+    return quad.view(np.uint32).ravel()[r].view(np.uint8)[:n]
+
+
+def human_scale_case(seed: int):
+    """GRCh38's coordinate space: its 24 chromosomes at their lengths,
+    uniform random bases, and 64 reads of 10 kb (error 0.04 / 0.03 / 0.03,
+    both strands) from chr14 on (in GRCh38 they start past 2^31) plus 8
+    from chr1.  Returns (store, [(name, seq, (chrom, start0, strand))])."""
+    read_len = 10_000
+    rng = np.random.default_rng(seed)
+    store = GenomeStore()
+    for name, n in GRCH38:
+        store.add_chromosome(name, uniform_bases(rng, n))
+    store.finalize()
+    far = store.chromosomes[13:]
+    picks = [far[int(i)] for i in rng.integers(0, len(far), 64)]
+    picks += [store.chromosomes[0]] * 8
+    reads = []
+    for i, c in enumerate(picks):
+        start = int(rng.integers(0, c.length_unpadded - read_len))
+        seq = mutate_read(rng, store.bases[c.start + start:
+                                           c.start + start + read_len])
+        strand = "+" if rng.random() < 0.5 else "-"
+        if strand == "-":
+            seq = revcomp_bytes(seq)
+        reads.append((f"read{i}_{c.name}_{start}_{strand}", seq,
+                      (c.name, start, strand)))
+    return store, reads

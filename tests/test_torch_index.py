@@ -1,6 +1,11 @@
 """darwin_tpu_torch's minimizer scan and seed table against darwin_tpu's
-(the host build is darwin_tpu's identity oracle); tables cross between
-the packages through .npz files and from_numpy.  Exact equality."""
+(the host build is darwin_tpu's identity oracle): the work-list scan
+against ``scan_many_minimizers`` and every build method and layout against
+darwin_tpu's, with rows and row batches patched small in both packages so
+that sequences straddle rows and batches; the repeat genome both packages
+make; the streaming build's retry and its sort in hash-range pieces; the
+out-of-memory fallback.  Tables cross between the packages through .npz
+files and from_numpy.  Exact equality (integer arrays, tolerance 0)."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -11,7 +16,10 @@ from darwin_tpu.config import Config
 from darwin_tpu.genome import GenomeStore
 from darwin_tpu.index import minimizers as jmin
 from darwin_tpu.index import seed_table as jst
+from darwin_tpu.utils import synthgenome as jsynthgenome
+from darwin_tpu_torch.genome import GenomeStore as PortStore
 from darwin_tpu_torch.index import minimizers, seed_table
+from darwin_tpu_torch.utils import synthgenome
 
 torch.set_num_threads(2)
 
@@ -142,3 +150,214 @@ def test_index_entry_points_default_to_the_card(name, tmp_path):
         built = seed_table.build_seed_table(store, cfg, "cpu")
         assert torch.equal(table.positions, built.positions)
         assert torch.equal(table.sorted_hashes, built.sorted_hashes)
+
+
+# ------------------------------------------------ the work-list scan
+
+@pytest.fixture
+def small_batches(monkeypatch):
+    """Rows of 256 new positions, 3 rows a batch, in both packages."""
+    monkeypatch.setattr(jmin, "CHUNK", 256)
+    monkeypatch.setattr(jmin, "CROWS", 3)
+    monkeypatch.setattr(minimizers, "CHUNK", 256)
+    monkeypatch.setattr(minimizers, "ROWS", 3)
+
+
+def _scan_many(seqs, k, w):
+    """scan_many_minimizers' counterpart on the work-list scan: seqs are
+    (codes2, length_unpadded) numpy pairs laid out in one buffer; one
+    (local positions int64, hashes uint32) pair per sequence."""
+    lengths = [n for _, n in seqs]
+    room = [max((n + 15) // 16 * 16, len(c)) for c, n in seqs]
+    starts = np.concatenate([[0], np.cumsum(room)[:-1]]).astype(np.int64)
+    buf = np.zeros(int(sum(room)), np.uint8)
+    for (c, _), s in zip(seqs, starts):
+        buf[s:s + len(c)] = c
+    seq_of_row = minimizers.work_list(lengths, k)[0]
+    out_p = [[np.zeros(0, np.int64)] for _ in seqs]
+    out_h = [[np.zeros(0, np.uint32)] for _ in seqs]
+    for m, emit, pos, (r0, _) in minimizers.scan_batches(
+            torch.from_numpy(buf), starts, lengths, k, w):
+        m, emit, pos = m.numpy(), emit.numpy(), pos.numpy()
+        for i in range(emit.shape[0]):
+            si = seq_of_row[r0 + i]
+            out_p[si].append(pos[i][emit[i]] - starts[si])
+            out_h[si].append(m[i][emit[i]].astype(np.uint32))
+    return [(np.concatenate(p), np.concatenate(h))
+            for p, h in zip(out_p, out_h)]
+
+
+@pytest.mark.parametrize("k,w", [(8, 3), (10, 5), (14, 3)])
+def test_work_list_scan_matches_scan_many_minimizers(k, w, small_batches):
+    """Reads shorter than k + w (and empty), 1-3 kb reads and a 40 kb
+    sequence in one work list: anchors chain through rows and batches,
+    a new sequence resets them, every sequence starts at last_m = 0."""
+    rng = np.random.default_rng(k * w)
+    lens = [0, 1, 5, k + w - 1, k + w, 17, 1000, 2100, 3000, 40_000, 9,
+            1500, 2999]
+    seqs = [(rng.integers(0, 4, n).astype(np.uint8), n) for n in lens]
+    # a run of equal bases: the window minimum holds, so emission comes
+    # from the w-step rule alone across row seams
+    seqs[9][0][5000:9000] = 2
+    want = jmin.scan_many_minimizers(seqs, k, w)
+    got = _scan_many(seqs, k, w)
+    assert len(minimizers.work_list(lens, k)[0]) > 3 * 20   # many batches
+    for (wp, wh), (gp, gh) in zip(want, got):
+        np.testing.assert_array_equal(gp, wp)
+        np.testing.assert_array_equal(gh, wh)
+    assert sum(len(p) for p, _ in got) > 10_000
+
+
+# ------------------------------------------------ builds on a repeat genome
+
+def test_repeat_genome_copy_is_byte_equal():
+    for seed in (0, 5):
+        a, sa = jsynthgenome.repeat_genome(np.random.default_rng(seed),
+                                           150_000)
+        b, sb = synthgenome.repeat_genome(np.random.default_rng(seed),
+                                          150_000)
+        assert a.tobytes() == b.tobytes() and sa == sb
+    rng = np.random.default_rng(1)
+    x = synthgenome._random_bases(rng, 500)
+    y = jsynthgenome.diverge(np.random.default_rng(2), x, 0.1)
+    assert synthgenome.diverge(np.random.default_rng(2), x, 0.1
+                               ).tobytes() == y.tobytes()
+
+
+@pytest.fixture(scope="module")
+def repeat_stores():
+    """The same three chromosomes in both packages' stores: a repeat
+    genome, random bases with an N run, and a short one."""
+    rng = np.random.default_rng(9)
+    bases, stats = synthgenome.repeat_genome(rng, 60_000)
+    assert stats["repeat_frac"] > 0.2
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    other = acgt[rng.integers(0, 4, 9_000)]
+    other[2000:2300] = ord("N")
+    chroms = [("rep", bases), ("rnd", other), ("tiny", acgt[:7])]
+    jstore = GenomeStore()
+    for name, seq in chroms:
+        jstore.add_chromosome(name, seq)
+    jstore.finalize()
+    store = PortStore.from_numpy([n for n, _ in chroms],
+                                 [s for _, s in chroms])
+    return jstore, store
+
+
+def _cfg(k):
+    cfg = Config()
+    cfg.seed_size = k
+    return cfg
+
+
+def _same_table(got, want):
+    """A port table equals a darwin_tpu table of the same layout."""
+    assert got.layout == ("csr" if want.bucket_offsets is not None
+                          else "pairs")
+    if want.bucket_offsets is not None:
+        assert got.sorted_hashes is None
+        np.testing.assert_array_equal(got.bucket_offsets.numpy(),
+                                      np.asarray(want.bucket_offsets))
+    else:
+        np.testing.assert_array_equal(
+            got.sorted_hashes.numpy().view(np.uint32),
+            np.asarray(want.sorted_hashes))
+    np.testing.assert_array_equal(got.positions.numpy().view(np.uint32),
+                                  np.asarray(want.positions))
+    assert (got.kmer_size, got.minimizer_window, got.ref_size,
+            got.kmer_max_occurence) == (
+        want.kmer_size, want.minimizer_window, want.ref_size,
+        want.kmer_max_occurence)
+
+
+@pytest.mark.parametrize("k", [8, 10])
+@pytest.mark.parametrize("layout,method", [
+    ("pairs", None), ("pairs", "device"), ("pairs", "stream"),
+    ("pairs", "host"), ("csr", None)])
+def test_build_matches_darwin_tpu(repeat_stores, small_batches, k, layout,
+                                  method):
+    jstore, store = repeat_stores
+    want = jst.build_seed_table(jstore, _cfg(k), method=method,
+                                layout=layout)
+    got = seed_table.build_seed_table(store, _cfg(k), "cpu", method=method,
+                                      layout=layout)
+    _same_table(got, want)
+    stats = got.build_stats
+    assert stats["layout"] == layout
+    assert stats["method"] == method or (layout, method) in (
+        ("pairs", None), ("csr", None))
+    hashes = np.unique(np.asarray(jst.build_seed_table(
+        jstore, _cfg(k), method="host").sorted_hashes))
+    for probe in [0, 1, 77, (1 << 2 * k) - 1] + hashes[::37].tolist():
+        assert got.is_present(probe) == want.is_present(probe)
+    # the repeat genome fills some buckets past the occupancy cap
+    assert not all(got.is_present(int(h)) for h in hashes)
+
+
+def test_streaming_build_retries_and_sorts_in_pieces(repeat_stores,
+                                                     small_batches,
+                                                     monkeypatch):
+    """A capacity too small for the seeds is retried, nothing lost; a sort
+    in hash-range pieces gives the one sort's table."""
+    jstore, store = repeat_stores
+    want = jst.build_seed_table(jstore, _cfg(8), method="host")
+    real = minimizers.sorted_pairs_streaming
+    caps = []
+
+    def tight(codes, starts, lengths, k, w, cap, stats=None):
+        caps.append(cap)
+        return real(codes, starts, lengths, k, w,
+                    100 if len(caps) == 1 else cap, stats)
+
+    monkeypatch.setattr(minimizers, "sorted_pairs_streaming", tight)
+    monkeypatch.setattr(minimizers, "SORT_PIECE", 1000)
+    got = seed_table.build_seed_table(store, _cfg(8), "cpu",
+                                      method="stream")
+    _same_table(got, want)
+    assert len(caps) == 2 and got.build_stats["retries"] == 1
+    assert got.num_seeds > 16 * 1000            # 32 pieces
+
+
+def test_out_of_memory_falls_back_to_the_host_build(repeat_stores,
+                                                    monkeypatch, capsys):
+    """A device pairs build that runs out of memory gives the host build's
+    table and says so on stderr; any other error propagates."""
+    jstore, store = repeat_stores
+    want = jst.build_seed_table(jstore, _cfg(10), method="host")
+
+    def oom(*a, **kw):
+        raise torch.cuda.OutOfMemoryError("CUDA out of memory.")
+
+    monkeypatch.setattr(minimizers, "sorted_pairs_device", oom)
+    monkeypatch.setattr(minimizers, "sorted_pairs_streaming", oom)
+    for method in (None, "device", "stream"):
+        got = seed_table.build_seed_table(store, _cfg(10), "cpu",
+                                          method=method)
+        _same_table(got, want)
+        assert got.build_stats["method"] == "host"
+        assert got.build_stats["fallback"] in ("device", "stream")
+        err = capsys.readouterr().err
+        assert err == (
+            "[darwin_tpu_torch] device seed-table build exhausted HBM; "
+            "falling back to the host build (identical output).  Consider "
+            "--index-layout csr for genomes this large.\n")
+
+    def other(*a, **kw):
+        raise RuntimeError("CUDA error: an illegal memory access")
+
+    monkeypatch.setattr(minimizers, "sorted_pairs_device", other)
+    with pytest.raises(RuntimeError, match="illegal memory access"):
+        seed_table.build_seed_table(store, _cfg(10), "cpu", method="device")
+    assert capsys.readouterr().err == ""
+
+
+def test_csr_and_method_validation(repeat_stores):
+    """darwin_tpu's refusals: csr has one build and needs k <= 14."""
+    _, store = repeat_stores
+    with pytest.raises(ValueError, match="single"):
+        seed_table.build_seed_table(store, _cfg(8), "cpu", method="stream",
+                                    layout="csr")
+    with pytest.raises(ValueError, match="seed_size <= 14"):
+        seed_table.build_seed_table(store, _cfg(15), "cpu", layout="csr")
+    with pytest.raises(ValueError, match="unknown index layout"):
+        seed_table.build_seed_table(store, _cfg(8), "cpu", layout="bogus")

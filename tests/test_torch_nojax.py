@@ -67,6 +67,10 @@ def test_port_imports_and_runs_without_jax(tmp_path):
     mods = _modules()
     assert "darwin_tpu_torch.ops.gact_cuda" in mods
     assert "darwin_tpu_torch.pipeline.align" in mods
+    assert {"darwin_tpu_torch.index.minimizers",
+            "darwin_tpu_torch.index.seed_table",
+            "darwin_tpu_torch.seeding.dsoft",
+            "darwin_tpu_torch.utils.synthgenome"} <= set(mods)
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="2")
     proc = subprocess.run(
         [sys.executable, "-c", f"MODULES = {mods!r}\n" + CHILD,

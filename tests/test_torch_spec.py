@@ -652,10 +652,14 @@ def test_stats_out(tiny):
     out, err, c = _run_tiny(tmp, stats_out=stats, spec_k=1,
                             pipeline_depth=1)
     assert out == sam
-    assert set(stats) == {"align_seconds", "stage_seconds",
-                          "stage_seconds_cold", "stage_seconds_warm",
-                          "counters", "compile_s"}
+    assert set(stats) == {"align_seconds", "index_seconds", "index_build",
+                          "stage_seconds", "stage_seconds_cold",
+                          "stage_seconds_warm", "counters", "compile_s"}
     assert stats["counters"] == c and stats["compile_s"] >= 0
+    assert stats["index_seconds"] > 0
+    build = stats["index_build"]
+    assert (build["layout"], build["method"], build["batches"]) == (
+        "pairs", "device", 1)
     total, cold = stats["stage_seconds"], stats["stage_seconds_cold"]
     assert {"read_upload", "seed", "filter", "extend", "print",
             "seed_chain", "extend_decode"} <= set(total)
