@@ -52,13 +52,30 @@ Phases (each prints its lines; any failure raises, so the exit is nonzero):
      uniform random bases): the csr index at k = 14, w = 3, the pairs
      table by the automatic method (the streaming build) the same bucket
      for bucket, and 72 reads of 10 kb, 64 of them past 2^31, aligned with
-     the csr table: >= 95% on their locus.
+     the csr table: >= 95% on their locus; then the pairs table sharded by
+     hash range over a mesh of 2 (two cards, or cuda:0 named twice): its
+     shards' resident bytes and peak, dsoft_sharded on the 72 reads against
+     the replicated D-SOFT (every valid hit, anchor and count), and the 72
+     reads aligned by Aligner(mesh, shard_index=True): SAM identical;
+ 12. a mesh (every card, a power of two, when there are two or more, else
+     cuda:0 named twice): phase 5's case through run(mesh=) and
+     run(mesh=, shard_index=True), phase 7's through run(mesh=), each with
+     SAM / MHAP and counter block identical to the one-device run of this
+     process (on more than one card the defaults' runs of phases 5 and 7
+     mesh every card, so mesh='off' runs each case on one device too); reads/s beside the one-device run's, each shard's kernel
+     launches, and the copies that crossed between two devices;
+ 13. two ranks of ``python -m darwin_tpu_torch.parallel.multihost`` on
+     127.0.0.1 over gloo, both on this machine's card(s), over phase 5's
+     case: each a real half of the reads, the merged SAM identical to the
+     one-process run's, the summed counters equal to its counters (the
+     extension rounds apart: they count per read batch), no rank
+     rebuilding a library.
 Phases 10 and 11 print each index build's passes, seconds, seeds and peak
 device memory, and fail if a build fell back to the host.
-Phases 5-7, 9 and 10 print the align phase's reads/s, the extension GCUPS,
-the chains' hits, misses and rounds and the stage seconds of run()'s
+Phases 5-7, 9, 10 and 12 print the align phase's reads/s, the extension
+GCUPS, the chains' hits, misses and rounds and the stage seconds of run()'s
 stats_out.  Every kernel's launch count is set to 0 just before each of
-the runs of phases 5-11 and read just after; a kernel its path never
+the runs of phases 5-12 and read just after; a kernel its path never
 launched fails.
 The line before the last is the kernels' JSON summary, preceded by the
 card's name and power limit; the last line is {"ok": true, "device":
@@ -951,18 +968,20 @@ def _large_tiles(blk):
                .split(":")[1])
 
 
-def phase_real(phase, seed, kstats, smi, params_cfg, min_share, tmp):
+def phase_real(phase, seed, kstats, smi, params_cfg, min_share, tmp,
+               into=None):
     """Reference-guided mode at real size through the CLI: the E. coli
     K-12-size case in ``tmp`` (written there if it is not), with the
     default scoring (phase 5) or the generic params.cfg (phase 6, path
-    A).  Returns (SAM, counter block, chains)."""
+    A).  Returns (SAM, counter block, chains); ``into`` gets run()'s
+    stats_out."""
     from darwin_tpu_torch.utils import synth
     truth = _case(tmp, "ecoli", seed)
     if params_cfg:
         with open(f"{tmp}/params.cfg", "w") as f:
             f.write(params_cfg)
     sam, blk, launches, chains = _run_cli(phase, ["ref.fa", "reads.fa", "0"],
-                                          tmp, len(truth), smi)
+                                          tmp, len(truth), smi, into=into)
     share = _locus_share(phase, sam, truth, f"{synth.ECOLI_LEN} bp")
     check(share >= min_share,
           f"only {share:.4f} of reads on the true locus")
@@ -992,11 +1011,12 @@ def _mhap_pairs(mhap):
             if " " in ln}
 
 
-def phase_overlap(seed, kstats, smi, tmp_real):
+def phase_overlap(seed, kstats, smi, tmp_real, stats):
     """Path B, overlap mode: a small run on cuda and on cpu with identical
     MHAP, counters and chains, then 512 x 10 kb reads at 10x coverage
     against themselves through the CLI (the case in ``tmp_real``), checked
-    against the simulation.  Returns (MHAP, counter block, chains)."""
+    against the simulation.  Returns (MHAP, counter block, chains);
+    ``stats`` gets run()'s stats_out."""
     from darwin_tpu_torch.config import Config
     from darwin_tpu_torch.utils import synth
     with tempfile.TemporaryDirectory() as tmp:
@@ -1017,7 +1037,6 @@ def phase_overlap(seed, kstats, smi, tmp_real):
 
     min_overlap = Config().min_overlap
     truth = _case(tmp_real, "overlap", seed)
-    stats = {}
     mhap, blk, launches, chains = _run_cli(
         7, ["reads.fa", "reads.fa", "1"], tmp_real, len(truth), smi,
         into=stats)
@@ -1100,19 +1119,32 @@ def phase_probe(kstats, smi):
     _took(kstats, launches, ["int_probe"])
 
 
-def phase_k1(seed, kstats, smi, dirs, results):
+CASES = {5: ("ecoli", ["ref.fa", "reads.fa", "0"]),
+         7: ("overlap", ["reads.fa", "reads.fa", "1"])}
+
+
+def _defaults_run(phase, seed, smi, dirs, results, stats, by):
+    """The defaults' run of phase 5's or 7's case, made by phase ``by``
+    when that phase was not run in this call: (case directory, truth)."""
+    name, argv = CASES[phase]
+    tmp = dirs(name)
+    truth = _case(tmp, name, seed)
+    if phase not in results:
+        out, blk, _, chains = _run_cli(by, argv, tmp, len(truth), smi,
+                                       into=stats.setdefault(phase, {}))
+        results[phase] = (out, blk, chains)
+    return tmp, truth
+
+
+def phase_k1(seed, kstats, smi, dirs, results, stats):
     """The cases of phases 5 and 7 without speculation, one read batch at
     a time: the non-speculative path, which must print what the defaults
     print, in more extension rounds.  ``results`` holds the defaults'
     outputs by phase; a phase not run in this call is run here."""
     k1 = dict(spec_k=1, pipeline_depth=1)
-    for phase, name, argv in ((5, "ecoli", ["ref.fa", "reads.fa", "0"]),
-                              (7, "overlap", ["reads.fa", "reads.fa", "1"])):
-        tmp = dirs(name)
-        truth = _case(tmp, name, seed)
-        if phase not in results:
-            out, blk, _, chains = _run_cli(9, argv, tmp, len(truth), smi)
-            results[phase] = (out, blk, chains)
+    for phase in (5, 7):
+        argv = CASES[phase][1]
+        tmp, truth = _defaults_run(phase, seed, smi, dirs, results, stats, 9)
         out, blk, launches, chains = _run_cli(9, argv, tmp, len(truth), smi,
                                               **k1)
         d_out, d_blk, d_chains = results[phase]
@@ -1269,12 +1301,13 @@ def phase_human(seed, kstats, smi):
           f"the automatic method took {pairs.build_stats['method']}")
     _same_buckets(pairs, csr)
     say(11, "pairs and csr tables: the same buckets, positions and order")
-    del pairs
+    reads = [make_read(n, q) for n, q, _ in sim]
+    truth = {n: t for n, _, t in sim}
+    mesh, what = _mesh_of(2)
+    _sharded_dsoft(cfg, pairs, reads, mesh, what)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     aligner = align.Aligner(cfg, store, table=csr, device="cuda")
-    reads = [make_read(n, q) for n, q, _ in sim]
-    truth = {n: t for n, _, t in sim}
     init_s = time.perf_counter() - t0
     gact_cuda.reset_launches()
     t0 = time.perf_counter()
@@ -1295,10 +1328,287 @@ def phase_human(seed, kstats, smi):
           f"only {share:.4f} of reads on the true locus")
     _took(kstats, launches, DEFAULT_PATH)
 
+    # the same reads through the pairs table sharded over the mesh
+    del aligner, csr
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    aligner = align.Aligner(cfg, store, table=pairs, device="cuda",
+                            mesh=mesh, shard_index=True)
+    init_s = time.perf_counter() - t0
+    gact_cuda.reset_launches()
+    t0 = time.perf_counter()
+    lines = aligner.align_batch(reads)
+    for d in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(d)
+    align_s = time.perf_counter() - t0
+    launches = dict(gact_cuda.LAUNCHES)
+    check("".join(lines) == sam, "Aligner(mesh, shard_index=True): SAM "
+          "differs from the csr table's on one device")
+    m = aligner.mesh_dispatch
+    say(11, f"aligned by Aligner(mesh of 2, shard_index=True) on the pairs "
+            f"table: SAM identical to the csr run's; set-up {init_s:.1f} s, "
+            f"align {align_s:.2f} s = {len(reads) / align_s:.1f} reads/s; "
+            f"kernel launches {launches}; per shard: " + _shard_launches(
+                {"devices": [str(d) for d in m.mesh], "lanes": m.lanes,
+                 "launches": m.launches}) + f" [{smi}]")
+    _took(kstats, launches, DEFAULT_PATH)
+
+
+def _sharded_dsoft(cfg, pairs, reads, mesh, what):
+    """The pairs table sharded over ``mesh``: its shards' resident bytes
+    and the peak past what was held (on one card the full shards are views
+    of the table), then dsoft_sharded on the reads against the replicated
+    D-SOFT of the Seeder: every count, valid hit and anchor."""
+    from darwin_tpu_torch.parallel.shard_index import dsoft_sharded, \
+        shard_seed_table
+    from darwin_tpu_torch.seeding import dsoft
+    from darwin_tpu_torch.seeding.seeder import Seeder
+    devs = [d.index for d in mesh.distinct()]
+    for d in devs:
+        torch.cuda.synchronize(d)
+        torch.cuda.reset_peak_memory_stats(d)
+    held = [torch.cuda.memory_allocated(d) for d in devs]
+    t0 = time.perf_counter()
+    st = shard_seed_table(pairs, mesh)
+    for d in devs:
+        torch.cuda.synchronize(d)
+    secs = time.perf_counter() - t0
+    peak = sum(torch.cuda.max_memory_allocated(d) - h
+               for d, h in zip(devs, held))
+    own = st.resident_bytes()
+    say(11, f"pairs table ({pairs.num_seeds} seeds, "
+            f"{8 * pairs.num_seeds / 2**30:.2f} GiB) sharded over {what}: "
+            f"{len(st.hashes[0])} rows a shard in {secs:.3f} s; bytes each "
+            f"shard holds of its own {own} (0: a view of the table); peak "
+            f"past the memory held {peak / 2**30:.3f} GiB")
+    check(peak <= sum(own) + (1 << 20),
+          f"sharding took {peak} B past the {sum(own)} B its shards own")
+    seeder = Seeder(pairs, cfg)
+    codes2, lengths, kw = seeder.query_rows(reads)
+    need = dsoft.dsoft_count(codes2, lengths, pairs.sorted_hashes, **kw)
+    hit_cap = max(int(need.max()), 1)
+    kw.update(threshold=cfg.dsoft_threshold, bin_size=cfg.bin_size)
+    t0 = time.perf_counter()
+    want = dsoft.dsoft_device(codes2, lengths, pairs.sorted_hashes,
+                              pairs.positions, a_cap=hit_cap,
+                              hit_cap=hit_cap, **kw)
+    torch.cuda.synchronize()
+    rep_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = dsoft_sharded(codes2, lengths, st, **kw)
+    for d in devs:
+        torch.cuda.synchronize(d)
+    sh_s = time.perf_counter() - t0
+    got = {k: v.cpu().numpy() for k, v in got.items()}
+    want = {k: v.cpu().numpy() for k, v in want.items()}
+    for k in ("n_hits", "n_anchors", "n_anchors_raw", "n_queried_buckets",
+              "n_capped"):
+        check((got[k] == want[k]).all(), f"dsoft_sharded != replicated: {k}")
+    high = 0
+    for row in range(len(got["n_hits"])):
+        for k in ("hits_bin", "hits_off", "hits_pos", "anc_pos", "anc_off",
+                  "anc_bin"):
+            n = int(want["n_hits" if k.startswith("hits") else
+                         "n_anchors"][row])
+            check((got[k][row, :n] == want[k][row, :n]).all(),
+                  f"dsoft_sharded != replicated: {k} of row {row}")
+        n = int(want["n_hits"][row])
+        high += int((want["hits_pos"][row, :n] >= 1 << 31).sum())
+    check(high > 0, "no hit past 2^31")
+    say(11, f"dsoft_sharded on {len(got['n_hits'])} rows ({len(reads)} "
+            f"reads, both strands) against the replicated D-SOFT: counts, "
+            f"{int(want['n_hits'].sum())} hits ({high} past 2^31) and "
+            f"{int(want['n_anchors'].sum())} anchors identical; "
+            f"{sh_s:.3f} s sharded, {rep_s:.3f} s replicated")
+
+
+# ---------------------------------------------------------------- 12, 13
+
+def _mesh_of(n=None):
+    """A mesh of n devices (by default every card, a power of two): n
+    distinct cards where the machine has them, else cuda:0 named n times
+    (default 2).  Returns (mesh, what it is)."""
+    from darwin_tpu_torch.parallel.shard import Mesh, make_mesh
+    have = torch.cuda.device_count()
+    if have >= 2:
+        n = n or 1 << (have.bit_length() - 1)
+        return make_mesh(n), f"{n} distinct cards"
+    n = n or 2
+    return Mesh(("cuda:0",) * n), f"cuda:0 named {n} times (one card)"
+
+
+def _shard_launches(m):
+    return "; ".join(f"shard {i} ({d}): {m['lanes'][i]} lanes, {la}"
+                     for i, (d, la) in enumerate(zip(m["devices"],
+                                                     m["launches"])))
+
+
+def _run_api(phase, ref, reads, overlap, n_reads, smi, **run_kw):
+    """run() in-process at its defaults on the card, every launch count set
+    to 0 just before and read just after.  Returns (output, counter block,
+    launches, stats_out, stderr)."""
+    from darwin_tpu_torch.ops import dispatch, gact_cuda
+    from darwin_tpu_torch.pipeline.align import run
+    out, err, stats = io.StringIO(), io.StringIO(), {}
+    gact_cuda.reset_launches()
+    dispatch.reset_ext_stats()
+    run(ref, reads, overlap, out=out, err=err, device="cuda",
+        stats_out=stats, **run_kw)
+    for d in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(d)
+    launches = dict(gact_cuda.LAUNCHES)
+    ext = dict(dispatch.EXT_STATS)
+    say(phase, f"kernel launches in this run: {launches}; extension "
+               f"dispatches {ext['dispatches']}, {ext['tiles']} tiles, "
+               f"{ext['device_ms']:.1f} ms of device time (each mesh "
+               f"dispatch its longest shard's) [{smi}]")
+    say(phase, "stage seconds: " + ", ".join(
+        f"{k}={v:.3f}" for k, v in sorted(stats["stage_seconds"].items(),
+                                          key=lambda kv: -kv[1])[:8]))
+    return (out.getvalue(), _counter_block(err.getvalue()), launches, stats,
+            err.getvalue())
+
+
+def phase_mesh(seed, kstats, smi, dirs, results, stats):
+    """Phase 5's case through run(mesh=) and run(mesh=, shard_index=True)
+    and phase 7's through run(mesh=): output and counter block identical
+    to the one-device run of this process; every shard launches every
+    kernel of the path."""
+    mesh, what = _mesh_of()
+    cards = torch.cuda.device_count()
+    say(12, f"mesh {[str(d) for d in mesh]}: {what}; "
+            f"torch.cuda.device_count() = {cards}")
+    for phase, overlap, kws in ((5, False, ({}, {"shard_index": True})),
+                                (7, True, ({},))):
+        tmp, truth = _defaults_run(phase, seed, smi, dirs, results, stats,
+                                   12)
+        d_out, d_blk, _ = results[phase]
+        d_rps = len(truth) / stats[phase]["align_seconds"]
+        ref = f"{tmp}/reads.fa" if overlap else f"{tmp}/ref.fa"
+        if cards > 1:
+            # the defaults' run (--mesh=auto) meshed every card: the
+            # one-device run is mesh='off'
+            out, blk, _, st, _ = _run_api(12, ref, f"{tmp}/reads.fa",
+                                          overlap, len(truth), smi,
+                                          mesh="off")
+            check((out, blk) == (d_out, d_blk), f"phase {phase}'s case: "
+                  f"--mesh=auto on {cards} cards differs from one device")
+            d_rps = len(truth) / st["align_seconds"]
+            say(12, f"phase {phase}'s case on one device (mesh='off'): "
+                    f"output and counter block identical to the defaults' "
+                    f"(--mesh=auto, {cards} cards); {d_rps:.1f} reads/s")
+        for kw in kws:
+            label = (f"phase {phase}'s case, mesh of {len(mesh)}"
+                     + (", sharded index" if kw else ""))
+            out, blk, launches, st, err = _run_api(
+                12, ref, f"{tmp}/reads.fa", overlap, len(truth), smi,
+                mesh=mesh, **kw)
+            check(out == d_out, f"{label}: output differs from the "
+                  f"one-device run's")
+            check(blk == d_blk, f"{label}: counters differ: {blk} vs {d_blk}")
+            line = (f"[darwin_tpu_torch] mesh: {len(mesh)} devices"
+                    + (" (sharded index)" if kw else ""))
+            check(line in err.splitlines(), f"{label}: no line {line!r}")
+            m = st["mesh"]
+            for i, la in enumerate(m["launches"]):
+                check(all(la.get(k, 0) > 0 for k in DEFAULT_PATH),
+                      f"{label}: shard {i} launched {la}")
+            _took(kstats, launches, DEFAULT_PATH)
+            rps = len(truth) / st["align_seconds"]
+            crossed = m["cross_copies"]
+            say(12, f"{label}: output ({len(out)} bytes) and counter block "
+                    f"identical to the one-device run's; {rps:.1f} reads/s "
+                    f"(one device in this process: {d_rps:.1f}) [{smi}]")
+            say(12, f"{label}: {_shard_launches(m)}")
+            say(12, f"{label}: {crossed} copies between two distinct "
+                    f"devices; torch.cuda.device_count() = {cards}: "
+                    + ("copies crossed cards" if crossed else
+                       "no copy crossed cards" + (
+                           " (one card: none can)" if cards < 2 else "")))
+            check(cards < 2 or crossed > 0,
+                  f"{label}: a mesh of distinct cards copied nothing")
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_multihost(seed, smi, dirs, results, stats):
+    """Two ranks of the multi-host entry point over phase 5's case, on
+    127.0.0.1 over gloo: a real split, the merged SAM the one-process
+    run's, the summed counters its counters but the extension rounds, no
+    library rebuilt by a rank."""
+    from darwin_tpu_torch import native
+    from darwin_tpu_torch.ops import build
+    tmp, truth = _defaults_run(5, seed, smi, dirs, results, stats, 13)
+    want = stats[5]["counters"]
+    build.load()
+    libs = [build.BUILD_INFO["path"], native._so_path()]
+    before = [os.stat(p) for p in libs]
+    coord = f"127.0.0.1:{_free_port()}"
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    logs = [open(f"{tmp}/rank{r}.err", "w+") for r in range(2)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "darwin_tpu_torch.parallel.multihost",
+         "ref.fa", "reads.fa", "0", "multi.sam", "--coordinator", coord,
+         "--num-processes", "2", "--process-id", str(r)],
+        cwd=tmp, env=env, stdout=subprocess.DEVNULL, stderr=logs[r])
+        for r in range(2)]
+    try:
+        rcs = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    text = []
+    for log in logs:
+        log.seek(0)
+        text.append(log.read())
+        log.close()
+    for r, rc in enumerate(rcs):
+        check(rc == 0, f"rank {r} exited {rc}:\n{text[r][-3000:]}")
+    half = len(truth) // 2
+    for r, (a, b) in enumerate(((0, half), (half, len(truth)))):
+        check(f"[host {r}/2] reads [{a}, {b})" in text[r],
+              f"rank {r} did not take reads [{a}, {b})")
+    with open(f"{tmp}/multi.sam") as f:
+        sam = f.read()
+    check(sam == results[5][0], "the merged SAM differs from the "
+          "one-process run's")
+    line = next((ln for ln in text[0].splitlines()
+                 if ln.startswith("global counters: ")), None)
+    check(line is not None, "rank 0 printed no global counters")
+    total = {k: int(v) for k, v in re.findall(r"(\w+)=(\d+)", line)}
+    rounds = total.pop("num_extend_rounds")
+    check(total == {k: v for k, v in want.items()
+                    if k != "num_extend_rounds"},
+          f"summed counters {total} differ from {want}")
+    after = [os.stat(p) for p in libs]
+    check([(a.st_ino, a.st_mtime_ns) for a in after]
+          == [(b.st_ino, b.st_mtime_ns) for b in before],
+          "a rank rebuilt a library")
+    align = [int(m.group(1)) / 1000 for m in (
+        re.search(r"aligning reads\): (\d+) msec", t) for t in text)]
+    say(13, f"2 ranks on 127.0.0.1 over gloo, torch.cuda.device_count() = "
+            f"{torch.cuda.device_count()}: reads [0, {half}) and [{half}, "
+            f"{len(truth)}); merged SAM ({len(sam)} bytes) identical to the "
+            f"one-process run's; summed counters equal to its counters "
+            f"(extension rounds {rounds} against {want['num_extend_rounds']}"
+            f" in one process: they count per read batch); align phase "
+            f"{align[0]:.3f} / {align[1]:.3f} s per rank, {wall:.1f} s of "
+            f"wall for both processes; no library rebuilt [{smi}]")
+
 
 # ---------------------------------------------------------------- main
 
-ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11}
+ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13}
 # measured on a correct run: the generic scoring's cheap gap opens change
 # CIGARs, not loci
 MIN_LOCUS_SHARE = 0.95
@@ -1337,21 +1647,27 @@ def main(argv=None):
                 made[name] = stack.enter_context(
                     tempfile.TemporaryDirectory())
             return made[name]
-        results = {}
+        results, stats = {}, {}
         if 5 in phases:
             results[5] = phase_real(5, args.seed, kstats, smi, None,
-                                    MIN_LOCUS_SHARE, dirs("ecoli"))
+                                    MIN_LOCUS_SHARE, dirs("ecoli"),
+                                    into=stats.setdefault(5, {}))
         if 6 in phases:
             with tempfile.TemporaryDirectory() as tmp:
                 phase_real(6, args.seed, kstats, smi, GENERIC_PARAMS_CFG,
                            MIN_LOCUS_SHARE, tmp)
         if 7 in phases:
             results[7] = phase_overlap(args.seed, kstats, smi,
-                                       dirs("overlap"))
+                                       dirs("overlap"),
+                                       stats.setdefault(7, {}))
         if 8 in phases:
             phase_probe(kstats, smi)
         if 9 in phases:
-            phase_k1(args.seed, kstats, smi, dirs, results)
+            phase_k1(args.seed, kstats, smi, dirs, results, stats)
+        if 12 in phases:
+            phase_mesh(args.seed, kstats, smi, dirs, results, stats)
+        if 13 in phases:
+            phase_multihost(args.seed, smi, dirs, results, stats)
         if 10 in phases:
             with tempfile.TemporaryDirectory() as tmp:
                 phase_chr21(args.seed, kstats, smi, tmp)

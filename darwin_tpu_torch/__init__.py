@@ -1,8 +1,8 @@
 """darwin_tpu_torch — the PyTorch/CUDA port of darwin_tpu.
 
 The same D-SOFT -> GACT long-read aligner as ``darwin_tpu`` (which stays
-in the repository, untouched, as the reference the port is held to), on one
-CUDA device.  Plain tensor code is PyTorch; every kernel that ``darwin_tpu``
+in the repository, untouched, as the reference the port is held to), on a
+CUDA device, a mesh of them, or several processes.  Plain tensor code is PyTorch; every kernel that ``darwin_tpu``
 wrote in Pallas is hand-written CUDA C++ for Hopper (``csrc/``), each with
 a plain PyTorch twin that the CPU tests use.
 
@@ -20,6 +20,8 @@ Layout:
   seeding       — D-SOFT on device, host chaining, the batch seeder
   pipeline      — filter, extension manager, SAM / MHAP printer, Aligner
                   and run()
+  parallel      — meshes (tile batches split over devices), the seed table
+                  sharded by hash range, multi-host runs
   tools         — the int32 op-rate probe, the align-phase profiler
   cli           — ``python -m darwin_tpu_torch.cli REF READS 0|1``
 """

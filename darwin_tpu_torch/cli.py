@@ -3,7 +3,8 @@
 
     python -m darwin_tpu_torch.cli <REFERENCE>.fasta <READS>.fasta <0|1> \
         [--device=cuda|cpu] [--index-cache=FILE.npz]
-        [--index-layout=pairs|csr] [--profile=DIR]
+        [--index-layout=pairs|csr] [--mesh=auto|off|N] [--shard-index]
+        [--profile=DIR]
 
 ``0`` is reference-guided mode (SAM on stdout), ``1`` overlap mode (both
 files are reads, usually the same file; MHAP on stdout).  Reads
@@ -14,8 +15,12 @@ twins and is meant for tests.  ``--index-cache`` loads the seed table from
 FILE when it matches the reference and the config, else builds it and
 writes it there; ``--index-layout`` builds that seed-table layout (a
 cache of the other layout is then rebuilt; without it pairs is built and
-a cache of either is taken); ``--profile`` writes a torch.profiler trace
-of the run to DIR/trace.json (darwin_tpu/cli.py's flags of the same names).
+a cache of either is taken); ``--mesh`` splits the tile batches over N
+devices (``auto``, the default: every local card, rounded down to a power
+of two, when there is more than one; ``off``: one device; on the CPU, N
+entries of it), and ``--shard-index`` shards the pairs table over them too;
+``--profile`` writes a torch.profiler trace of the run to DIR/trace.json
+(darwin_tpu/cli.py's flags of the same names).
 """
 
 from __future__ import annotations
@@ -29,7 +34,16 @@ from darwin_tpu_torch.pipeline.align import run
 USAGE = ("Usage: python -m darwin_tpu_torch.cli <REFERENCE>.fasta "
          "<READS>.fasta OVERLAP(0/1) [--device=cuda|cpu] "
          "[--index-cache=FILE.npz] [--index-layout=pairs|csr] "
-         "[--profile=DIR]")
+         "[--mesh=auto|off|N] [--shard-index] [--profile=DIR]")
+
+
+def read_config(overlap: bool) -> Config:
+    """``params.cfg`` in the working directory when there is one, else the
+    defaults."""
+    if os.path.exists("params.cfg"):
+        print("Reading configuration ...", file=sys.stderr)
+        return load_config("params.cfg", do_overlap=overlap)
+    return Config()
 
 
 def main(argv=None, **run_kwargs):
@@ -41,10 +55,19 @@ def main(argv=None, **run_kwargs):
     index_cache = None
     layout = None
     profile_dir = None
+    mesh = "auto"
+    shard_index = False
     rest = []
     for a in argv:
         if a.startswith("--device="):
             device = a.split("=", 1)[1]
+        elif a.startswith("--mesh="):
+            mesh = a.split("=", 1)[1]
+            if mesh not in ("auto", "off") and not mesh.isdigit():
+                print(f"unknown mesh {mesh!r}\n{USAGE}", file=sys.stderr)
+                return 1
+        elif a == "--shard-index":
+            shard_index = True
         elif a.startswith("--index-cache="):
             index_cache = a.split("=", 1)[1]
         elif a.startswith("--index-layout="):
@@ -64,13 +87,10 @@ def main(argv=None, **run_kwargs):
         print(USAGE, file=sys.stderr)
         return 1
     ref_path, reads_path, overlap = rest[0], rest[1], rest[2] == "1"
-    if os.path.exists("params.cfg"):
-        print("Reading configuration ...", file=sys.stderr)
-        cfg = load_config("params.cfg", do_overlap=overlap)
-    else:
-        cfg = Config()
-    kw = dict(cfg=cfg, device=device, index_cache=index_cache,
-              index_layout=layout, **run_kwargs)
+    kw = dict(cfg=read_config(overlap), device=device,
+              index_cache=index_cache, index_layout=layout,
+              mesh=mesh if mesh in ("auto", "off") else int(mesh),
+              shard_index=shard_index, **run_kwargs)
     if not profile_dir:
         run(ref_path, reads_path, overlap, **kw)
         return 0

@@ -4,8 +4,7 @@ Plain and gzip-compressed files.  Yields (name, sequence-bytes) pairs; the
 name is the first whitespace-delimited token of the header, matching kseq's
 ``name`` field used for Read.description (software/main.cpp:434,666).
 
-The port's own copy of ``darwin_tpu/io/fasta.py``, without the read-index
-slicing of its multi-host runs.
+The port's own copy of ``darwin_tpu/io/fasta.py``.
 """
 
 from __future__ import annotations
@@ -137,13 +136,29 @@ def load_reads(path: str, min_len: int = 64):
             if len(seq) > min_len]
 
 
-def iter_read_batches(path: str, batch_size: int, min_len: int = 64):
+def count_reads(path: str, min_len: int = 64) -> int:
+    """Number of reads load_reads would yield — one cheap streaming pass
+    (used to shard the stream across hosts without materializing it)."""
+    return sum(1 for _, seq in iter_fasta(path) if len(seq) > min_len)
+
+
+def iter_read_batches(path: str, batch_size: int, min_len: int = 64,
+                      start: int | None = None, stop: int | None = None):
     """Stream reads as ready-to-align batches with bounded memory: only
     ``batch_size`` reads (plus their reverse complements) are materialized
-    at a time."""
+    at a time.  [start, stop) selects a read-index slice (multi-host
+    sharding); None means the whole stream."""
     batch = []
+    idx = 0
     for name, seq in iter_fasta(path):
         if len(seq) <= min_len:
+            continue
+        keep = ((start is None or idx >= start)
+                and (stop is None or idx < stop))
+        idx += 1
+        if not keep:
+            if stop is not None and idx >= stop:
+                break
             continue
         batch.append(make_read(name, seq))
         if len(batch) == batch_size:

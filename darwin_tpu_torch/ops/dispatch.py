@@ -45,8 +45,10 @@ SPEC_K = 12
 # ``spec_tiles`` — and, on CUDA, device milliseconds between two events
 # recorded on the dispatch's stream around its DP + traceback (+ next-tile)
 # launches, the whole chain for a speculative one (read back in resolve(),
-# which synchronises anyway).  Two batches in flight update it from two
-# threads, under _stats_lock.  reset_ext_stats() zeroes it.
+# which synchronises anyway).  A mesh dispatch (parallel/shard.py) counts
+# once, its shards' tiles and cells summed and its device ms the longest
+# shard's interval.  Two batches in flight update it from two threads,
+# under _stats_lock.  reset_ext_stats() zeroes it.
 EXT_STATS = {"dispatches": 0, "tiles": 0, "spec_tiles": 0, "cells": 0,
              "device_ms": 0.0}
 _stats_lock = threading.Lock()
@@ -58,14 +60,27 @@ def reset_ext_stats():
                          device_ms=0.0)
 
 
-def _count_dispatch(tiles, spec_tiles, cells, events):
-    ms = events[0].elapsed_time(events[1]) if events else 0.0
+def count_dispatch(works):
+    """Count one dispatch made of the shards' ``works``, each (tiles,
+    spec_tiles, cells, events) as the enqueue functions below return it;
+    call after every shard's resolve()."""
+    ms = max(ev[0].elapsed_time(ev[1]) if ev else 0.0
+             for *_, ev in works)
     with _stats_lock:
         EXT_STATS["dispatches"] += 1
-        EXT_STATS["tiles"] += tiles
-        EXT_STATS["spec_tiles"] += spec_tiles
-        EXT_STATS["cells"] += cells
+        EXT_STATS["tiles"] += sum(w[0] for w in works)
+        EXT_STATS["spec_tiles"] += sum(w[1] for w in works)
+        EXT_STATS["cells"] += sum(w[2] for w in works)
         EXT_STATS["device_ms"] += ms
+
+
+def _counted(resolve, work):
+    """The resolve() of a one-device dispatch, which counts it."""
+    def counted():
+        res = resolve()
+        count_dispatch([work])
+        return res
+    return counted
 
 
 def _upload(device, *rows):
@@ -101,6 +116,15 @@ def extend_tiles_async(ref_codes, query_codes, r_start, r_size, q_start,
 
     resolve() -> {ops (B, L) uint8, n_ops, q_steps, r_steps, score,
     query_max_pos, ref_max_pos}, L = min(qt + rt, 2 * max_tb)."""
+    return _counted(*enqueue_extend(
+        ref_codes, query_codes, r_start, r_size, q_start, q_size, rev,
+        params, qt, rt, max_tb))
+
+
+def enqueue_extend(ref_codes, query_codes, r_start, r_size, q_start,
+                   q_size, rev, params, qt: int, rt: int, max_tb: int):
+    """extend_tiles_async's enqueue, uncounted: (resolve, work), ``work``
+    for ``count_dispatch``."""
     dev = ref_codes.device
     req = _upload(dev, r_start, r_size, q_start, q_size, rev)
     B = req.shape[1]
@@ -109,21 +133,20 @@ def extend_tiles_async(ref_codes, query_codes, r_start, r_size, q_start,
                                 req[2], req[3], req[4] != 0, qt, rt)
     se = torch.ones(B, dtype=torch.bool, device=dev)
     if events:
-        events[0].record()
+        events[0].record(torch.cuda.current_stream(dev))
     rec, stats = _extend_tile(qtile, rtile, tile_sizes(req[3], req[1]), se,
                               params, max_tb)
     if events:
-        events[1].record()
+        events[1].record(torch.cuda.current_stream(dev))
     packed = torch.cat([rec, torch.stack(stats)])
     L = min(qt + rt, 2 * max_tb)
 
     def resolve():
         p = fetch(packed)
-        _count_dispatch(B, 0, B * qt * rt, events)
         R = p.shape[0] - 5
         ops, n_ops = gact.expand_records(p[:R], B, L)
         return {"ops": ops, "n_ops": n_ops, **_stats_dict(p[R:])}
-    return resolve
+    return resolve, (B, 0, B * qt * rt, events)
 
 
 def _events(dev):
@@ -192,6 +215,17 @@ def extend_tiles_spec_async(ref_codes, query_codes, r_start, r_size,
     int64 (r_start, r_size, q_start, q_size) — the request the level was
     computed under — and ``ops_spec``: a SpecLevels of those levels'
     walks}."""
+    return _counted(*enqueue_spec(
+        ref_codes, query_codes, r_start, r_size, q_start, q_size, rev,
+        chrom_start, chrom_len, q_buf_start, q_len, params, qt, rt, max_tb,
+        stop_thr, K))
+
+
+def enqueue_spec(ref_codes, query_codes, r_start, r_size, q_start, q_size,
+                 rev, chrom_start, chrom_len, q_buf_start, q_len, params,
+                 qt: int, rt: int, max_tb: int, stop_thr: int, K: int):
+    """extend_tiles_spec_async's enqueue, uncounted: (resolve, work),
+    ``work`` for ``count_dispatch``."""
     if qt != rt:
         raise ValueError(f"speculative chains take square tiles: {qt}x{rt}")
     if K < 1:
@@ -219,7 +253,7 @@ def extend_tiles_spec_async(ref_codes, query_codes, r_start, r_size,
     qtile, rtile = gather_tiles(ref_codes, query_codes, req[0], req[1],
                                 req[2], req[3], rev_d, qt, rt)
     if events:
-        events[0].record()
+        events[0].record(torch.cuda.current_stream(dev))
     sizes = tile_sizes(req[3], req[1])
     recs, spec = [], []
     for j in range(K):
@@ -234,7 +268,7 @@ def extend_tiles_spec_async(ref_codes, query_codes, r_start, r_size,
             curr = nxt[4:6]
             spec.append(nxt[:4])
     if events:
-        events[1].record()
+        events[1].record(torch.cuda.current_stream(dev))
     # one int32 matrix: the records, the stats, then the int64 requests'
     # bytes as int32 pairs
     parts = recs + [stats1]
@@ -245,7 +279,6 @@ def extend_tiles_spec_async(ref_codes, query_codes, r_start, r_size,
 
     def resolve():
         p = fetch(packed)
-        _count_dispatch(B * K, B * (K - 1), B * K * qt * rt, events)
         R = rt
         ops, n_ops = gact.expand_records(p[:R], B, L)
         tail = p[K * R + 5:].reshape(-1).view(np.int64).reshape(-1, B)
@@ -254,4 +287,4 @@ def extend_tiles_spec_async(ref_codes, query_codes, r_start, r_size,
                 **_stats_dict(p[K * R:K * R + 5]),
                 "spec_req": spec_req,
                 "ops_spec": SpecLevels(p[R:K * R].reshape(K - 1, R, B), L)}
-    return resolve
+    return resolve, (B * K, B * (K - 1), B * K * qt * rt, events)

@@ -13,11 +13,13 @@ nothing.  Each wrapper checks device, dtype, shape and contiguity,
 allocates its outputs, raises when the launch is refused (the limits live
 in the sources alone: ``csrc/gact.h``, ``csrc/int_probe.cu``), and adds
 one to its launch count (``LAUNCHES``) where — and only where — it
-launches its kernel.
+launches its kernel; inside ``launches_into(counts)`` the calling thread's
+launches are also added to ``counts`` (a mesh shard's own count).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
 
@@ -30,6 +32,7 @@ from darwin_tpu_torch.ops import build, gact
 # flight launch from two threads, so every update holds _launch_lock.
 LAUNCHES = {"gact_dp": 0, "gact_tb": 0, "gact_next": 0, "int_probe": 0}
 _launch_lock = threading.Lock()
+_sink = threading.local()        # launches_into's dict, per thread
 
 _CUDA_ERROR_INVALID_VALUE = 1      # what the sources' limits checks return
 
@@ -38,6 +41,18 @@ def reset_launches():
     with _launch_lock:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
+
+
+@contextlib.contextmanager
+def launches_into(counts: dict):
+    """Count the calling thread's launches into ``counts`` (kernel ->
+    launches) too while inside."""
+    prev = getattr(_sink, "counts", None)
+    _sink.counts = counts
+    try:
+        yield
+    finally:
+        _sink.counts = prev
 
 
 def check_tensor(name, t, dtype, ndim, device):
@@ -67,8 +82,11 @@ def count_launch(name, err, shape):
                          f"source states (csrc/)")
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    counts = getattr(_sink, "counts", None)
     with _launch_lock:
         LAUNCHES[name] += 1
+        if counts is not None:
+            counts[name] = counts.get(name, 0) + 1
 
 
 def dp_tiles(qcodes, rcodes, qlens, rlens, start_end, params, with_trace):

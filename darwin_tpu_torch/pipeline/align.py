@@ -10,13 +10,19 @@ stdout and the 7-line counter block are byte-identical to darwin_tpu's,
 at any speculative chain depth and any number of batches in flight.
 
 The seed table is either layout (``index_layout``, ``--index-layout``);
-both give the same output.  Not ported yet: meshes and multi-host runs.
+both give the same output.  With a mesh (``mesh``, ``--mesh``) every tile
+batch is split over several devices (``parallel/shard.py``) and the pairs
+table may be sharded by hash range over them (``shard_index``,
+``--shard-index``; ``parallel/shard_index.py``); ``reads_range`` aligns one
+slice of the reads file (a multi-host run's, ``parallel/multihost.py``).
+The output is the same in every case.
 """
 
 from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import os
 import sys
 import threading
@@ -32,9 +38,10 @@ from darwin_tpu_torch.genome import GenomeStore, Read, encode5
 from darwin_tpu_torch.io.fasta import iter_read_batches, load_genome
 from darwin_tpu_torch.pipeline import filter as flt
 from darwin_tpu_torch.index.seed_table import SeedTable, build_seed_table
-from darwin_tpu_torch.ops import build, gact
-from darwin_tpu_torch.ops.dispatch import SPEC_K, first_tile_scores
+from darwin_tpu_torch.ops import build, dispatch, gact
+from darwin_tpu_torch.ops.dispatch import SPEC_K
 from darwin_tpu_torch.ops.gact_cuda import LAUNCHES
+from darwin_tpu_torch.parallel.shard import Mesh, MeshDispatcher, make_mesh
 from darwin_tpu_torch.pipeline import printer
 from darwin_tpu_torch.pipeline.extend import ExtensionManager
 from darwin_tpu_torch.seeding.seeder import Seeder
@@ -76,9 +83,14 @@ class Aligner:
 
     def __init__(self, cfg: Config, store: GenomeStore,
                  table: SeedTable | None = None, device="cuda",
-                 spec_k: int = SPEC_K, index_layout: str = "pairs"):
+                 spec_k: int = SPEC_K, index_layout: str = "pairs",
+                 mesh: Mesh | None = None, shard_index: bool = False):
         """index_layout: the layout of the table built when ``table`` is
-        None, 'pairs' or 'csr' (index.seed_table.SeedTable)."""
+        None, 'pairs' or 'csr' (index.seed_table.SeedTable).  mesh: split
+        every tile batch over its devices (``mesh_dispatch``, a
+        parallel.shard.MeshDispatcher; the genome replicated on them);
+        shard_index: also shard the pairs table by hash range over it
+        (ignored without a mesh)."""
         if spec_k < 1:
             raise ValueError(f"spec_k must be >= 1: {spec_k}")
         self.device = resolve_device(device)
@@ -90,7 +102,8 @@ class Aligner:
         if self.table.positions.device != self.device:
             raise ValueError(f"seed table is on {self.table.positions.device}"
                              f", the aligner on {self.device}")
-        self.seeder = Seeder(self.table, cfg)
+        self.seeder = Seeder(self.table, cfg,
+                             mesh=mesh if shard_index else None)
         self.params = gact.make_params(cfg)
         self.counters = new_counters()
         self.stage_seconds: dict = {}
@@ -101,6 +114,10 @@ class Aligner:
         # (one buffer serves the filter and every extension gather)
         bases = store.bases_with_margin(4 * cfg.large_tile_long)
         self.ref_codes = torch.from_numpy(encode5(bases)).to(self.device)
+        self.mesh_dispatch = None
+        if mesh is not None:
+            self.mesh_dispatch = MeshDispatcher(mesh)
+            self.ref_codes = self.mesh_dispatch.replicate(self.ref_codes)
 
     def _filter_dispatch(self, reads, anchors_per_read, strand, counters,
                          mgr):
@@ -116,9 +133,9 @@ class Aligner:
         q_start = batch.q_start + np.array(
             [mgr.q_code_start[(m[0], strand)] for m in batch.meta], np.int64)
         T = cfg.first_tile_size
-        res = first_tile_scores(self.ref_codes, mgr.q_codes_dev,
-                                batch.r_start, batch.r_size, q_start,
-                                batch.q_size, self.params, qt=T, rt=T)
+        res = (self.mesh_dispatch or dispatch).first_tile_scores(
+            self.ref_codes, mgr.q_codes_dev, batch.r_start, batch.r_size,
+            q_start, batch.q_size, self.params, qt=T, rt=T)
         return batch, n, res
 
     def _filter_collect(self, dispatched, counters):
@@ -149,7 +166,8 @@ class Aligner:
         t0 = time.perf_counter()
         mgr = ExtensionManager(self.store, reads, cfg, self.params,
                                self.ref_codes, spec_k=self.spec_k,
-                               stage_seconds=tacc)
+                               stage_seconds=tacc,
+                               mesh_dispatch=self.mesh_dispatch)
         t0 = mark(tacc, "read_upload", t0)
         seeded = self.seeder.seed_batch(reads, stage_seconds=tacc)
         counters["num_queried_buckets"] += seeded.n_queried_buckets
@@ -211,34 +229,61 @@ def _load_index(index_cache, store, cfg, dev, err, index_layout):
     return table
 
 
-def _in_flight(dev):
+def _in_flight(devices):
     """The worker threads' call of align_batch: the batches take turns on
     the host (utils.turns), and on CUDA each worker thread launches on a
-    stream of its own, made to wait once on the stream that uploaded the
-    genome and the index, so that one batch's fetch does not wait for the
-    other batch's kernels."""
+    stream of its own on each of ``devices`` (the aligner's and its
+    mesh's), made to wait once on the stream that uploaded the genome, its
+    replicas and the index there, so that one batch's fetch does not wait
+    for the other batch's kernels.  The first device is left current."""
     turns = HostTurns()
-    main = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+    cards = [d for d in dict.fromkeys(devices) if d.type == "cuda"]
+    main = {d: torch.cuda.current_stream(d) for d in cards}
     local = threading.local()
 
     def call(fn, *a):
-        with turns.turn():
-            if main is None:
-                return fn(*a)
-            s = getattr(local, "stream", None)
-            if s is None:
-                s = local.stream = torch.cuda.Stream(dev)
-                s.wait_stream(main)
-            with torch.cuda.stream(s):
-                return fn(*a)
+        with turns.turn(), contextlib.ExitStack() as stack:
+            streams = getattr(local, "streams", None)
+            if streams is None:
+                streams = local.streams = [torch.cuda.Stream(d)
+                                           for d in cards]
+                for s in streams:
+                    s.wait_stream(main[s.device])
+            # entering a stream makes its device current: the first last
+            for s in reversed(streams):
+                stack.enter_context(torch.cuda.stream(s))
+            return fn(*a)
     return call
+
+
+def _resolve_mesh(mesh, dev):
+    """run()'s mesh parameter -> a Mesh, or None for one device
+    (darwin_tpu/pipeline/align.py:320-349).  None / 'auto' takes the
+    power-of-two floor of the local cards when ``dev`` is a card and there
+    is more than one, else one device; 'off', 0 and 1 give one device; N
+    builds a mesh of N devices of ``dev``'s type (make_mesh: N distinct
+    cards, raising when fewer exist; N entries of the CPU for a CPU run);
+    a Mesh is used as given."""
+    if isinstance(mesh, Mesh):
+        return mesh
+    if mesh in ("off", 0, 1):
+        return None
+    if mesh in (None, "auto"):
+        n = torch.cuda.device_count() if dev.type == "cuda" else 1
+        return make_mesh(1 << (n.bit_length() - 1)) if n > 1 else None
+    n = int(mesh)
+    if n < 2:
+        return None
+    return make_mesh(n, dev.type)
 
 
 def run(ref_path: str, reads_path: str, do_overlap: bool,
         cfg: Config | None = None, out=None, err=None,
         reads_per_batch: int = 128, device="cuda", pipeline_depth: int = 2,
         index_cache: str | None = None, stats_out: dict | None = None,
-        spec_k: int = SPEC_K, index_layout: str | None = None) -> dict:
+        spec_k: int = SPEC_K, index_layout: str | None = None,
+        mesh=None, shard_index: bool = False,
+        reads_range: tuple[int, int] | None = None) -> dict:
     """Align ``reads_path`` against ``ref_path`` on ``device``; SAM
     (``do_overlap`` false) or MHAP (true; ``ref_path`` is then a reads
     file too, usually the same one) to ``out``, progress and counters to
@@ -258,7 +303,15 @@ def run(ref_path: str, reads_path: str, do_overlap: bool,
     ``stage_seconds`` (``Aligner.stage_seconds``), ``stage_seconds_cold``
     (the first batch), ``stage_seconds_warm`` (the rest), ``counters`` and
     ``compile_s`` (seconds this process spent building the native and the
-    CUDA libraries)."""
+    CUDA libraries), and on a mesh ``mesh``: its devices, and per shard
+    the kernel launches and lanes of its dispatches, and the copies that
+    crossed between two devices.
+
+    mesh: None / 'auto', 'off', N or a parallel.shard.Mesh
+    (``_resolve_mesh``): every tile batch split over the mesh's devices;
+    shard_index: the pairs table also sharded by hash range over them.
+    reads_range: (start, stop) aligns only that slice of the reads (those
+    ``load_reads`` would keep), a multi-host run's share."""
     if pipeline_depth < 1:
         raise ValueError(f"pipeline_depth must be >= 1: {pipeline_depth}")
     if index_layout not in (None, "pairs", "csr"):
@@ -279,13 +332,19 @@ def run(ref_path: str, reads_path: str, do_overlap: bool,
     print("Finalizing seed position table ...", file=err)
     t0 = time.time()
     table = _load_index(index_cache, store, cfg, dev, err, index_layout)
+    mesh_obj = _resolve_mesh(mesh, dev)
+    if mesh_obj is not None:
+        print(f"[darwin_tpu_torch] mesh: {len(mesh_obj)} devices"
+              f"{' (sharded index)' if shard_index else ''}", file=err)
     aligner = Aligner(cfg, store, table=table, device=dev, spec_k=spec_k,
-                      index_layout=index_layout or "pairs")
+                      index_layout=index_layout or "pairs", mesh=mesh_obj,
+                      shard_index=shard_index)
     if index_cache is not None and table is None:
         aligner.table.save(index_cache)
         print(f"Seed table saved to {index_cache}", file=err)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    for d in {dev, *(mesh_obj or ())}:
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
     index_s = time.time() - t0
     print(f"Time elapsed (finalizing seed position table): "
           f"{int(index_s * 1000)} msec", file=err)
@@ -307,9 +366,11 @@ def run(ref_path: str, reads_path: str, do_overlap: bool,
             header_done = True
         out.writelines(lines)
 
-    in_flight = _in_flight(dev)
+    in_flight = _in_flight([dev, *(mesh_obj or ())])
+    start, stop = reads_range or (None, None)
     with concurrent.futures.ThreadPoolExecutor(pipeline_depth) as pool:
-        for batch in iter_read_batches(reads_path, reads_per_batch):
+        for batch in iter_read_batches(reads_path, reads_per_batch,
+                                       start=start, stop=stop):
             cnt = new_counters()
             if pipeline_depth > 1:
                 fut = pool.submit(in_flight, aligner.align_batch, batch, cnt)
@@ -356,4 +417,10 @@ def run(ref_path: str, reads_path: str, do_overlap: bool,
         stats_out["counters"] = dict(c)
         stats_out["compile_s"] = (native.BUILD_INFO["seconds"]
                                   + build.BUILD_INFO.get("seconds", 0.0))
+        md = aligner.mesh_dispatch
+        if md is not None:
+            stats_out["mesh"] = {"devices": [str(d) for d in md.mesh],
+                                 "launches": md.launches,
+                                 "lanes": md.lanes,
+                                 "cross_copies": md.cross_copies}
     return c

@@ -39,8 +39,7 @@ import torch
 
 from darwin_tpu_torch import native
 from darwin_tpu_torch.genome import encode5
-from darwin_tpu_torch.ops.dispatch import extend_tiles_async, \
-    extend_tiles_spec_async
+from darwin_tpu_torch.ops import dispatch
 from darwin_tpu_torch.pipeline.filter import ExtendLocation
 from darwin_tpu_torch.utils.stages import mark
 
@@ -321,16 +320,21 @@ class ExtensionManager:
     The read batch is uploaded once as 1-byte ``encode5`` codes: per read
     and strand the ASCII sequence plus a 4 * tile_size 'N' margin, the
     same layout darwin_tpu's mesh path uploads.  ``spec_k``: tiles per
-    speculative chain (1: no speculation)."""
+    speculative chain (1: no speculation).  ``mesh_dispatch``: a
+    ``parallel.shard.MeshDispatcher`` that splits every dispatch over its
+    mesh; the read batch's codes then get one copy per device of the mesh
+    (``ref_codes_dev`` is the genome's ``Replicated``)."""
 
     def __init__(self, store, reads, cfg, params, ref_codes_dev,
-                 spec_k: int = 1, stage_seconds: dict | None = None):
+                 spec_k: int = 1, stage_seconds: dict | None = None,
+                 mesh_dispatch=None):
         t0 = time.perf_counter()
         self.store = store
         self.cfg = cfg
         self.params = params
         self.spec_k = spec_k
         self.stage_seconds = stage_seconds
+        self.dispatch = mesh_dispatch or dispatch
         self.bases = store.bases_with_margin(4 * cfg.large_tile_long)
         self.ref_codes_dev = ref_codes_dev
         margin = np.full(4 * cfg.tile_size, ord("N"), np.uint8)
@@ -346,6 +350,8 @@ class ExtensionManager:
         t0 = mark(stage_seconds, "ru_qbuild", t0)
         self.q_codes_dev = torch.from_numpy(encode5(self.q_ascii)).to(
             ref_codes_dev.device)
+        if mesh_dispatch is not None:
+            self.q_codes_dev = mesh_dispatch.replicate(self.q_codes_dev)
         mark(stage_seconds, "ru_enqueue", t0)
 
     def _decode_wave(self, exts, tiles, opsmat, nvec, cfg) -> dict:
@@ -447,14 +453,14 @@ class ExtensionManager:
                                     np.int64).reshape(B, 4).T
                 t0 = mark(tacc, "extend_pack", t0)
                 if spec:
-                    resolve = extend_tiles_spec_async(
+                    resolve = self.dispatch.extend_tiles_spec_async(
                         self.ref_codes_dev, self.q_codes_dev, r_start,
                         r_size, q_start, q_size, rev, *lane, self.params,
                         qt=qt, rt=rt, max_tb=2 * T,
                         stop_thr=min(rt, qt) - cfg.tile_overlap,
                         K=self.spec_k)
                 else:
-                    resolve = extend_tiles_async(
+                    resolve = self.dispatch.extend_tiles_async(
                         self.ref_codes_dev, self.q_codes_dev, r_start,
                         r_size, q_start, q_size, rev, self.params, qt=qt,
                         rt=rt, max_tb=2 * T)

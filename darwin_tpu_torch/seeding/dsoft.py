@@ -83,17 +83,20 @@ def _bucket_ranges(sorted_hashes, qhash, bucket_offsets=None):
     return start, end
 
 
-def _bucket_hits_flat(positions, offs, start, end, slot_ok, max_occ,
-                      bin_size, hit_cap):
+def _bucket_hits_flat(positions, offs, start, end, cnt_global, slot_ok,
+                      max_occ, bin_size, hit_cap):
     """Hits of the usable buckets packed ragged-flat into (B, hit_cap)
     slots in (minimizer, in-bucket) order (darwin_tpu/seeding/dsoft.py:
-    130-188).  Returns (bin, off, pos, bucket_ok, total); slots past a
-    row's ``total`` or failing hit >= offset carry bin NO_BIN.  Rows with
-    total > hit_cap lose hits: the caller sizes hit_cap from dsoft_count."""
+    130-188).  A bucket is usable when its ``cnt_global`` — its size in the
+    whole table: ``end - start`` on one device, the sum over the shards of
+    a sharded table — is within max_occ.  Returns (bin, off, pos,
+    bucket_ok, total); slots past a row's ``total`` or failing hit >=
+    offset carry bin NO_BIN.  Rows with total > hit_cap lose hits: the
+    caller sizes hit_cap from dsoft_count."""
     B, mq = offs.shape
     dev = offs.device
     cnt = end - start
-    bucket_ok = slot_ok & (cnt <= max_occ)
+    bucket_ok = slot_ok & (cnt_global <= max_occ)
     cnt_eff = torch.where(bucket_ok, cnt, 0)
     cum = torch.cumsum(cnt_eff, 1)
     sflat = cum - cnt_eff                        # first slot of each bucket
@@ -216,7 +219,8 @@ def dsoft_device(codes2, lengths, sorted_hashes, positions, *, k, w,
     start, end = _bucket_ranges(sorted_hashes, qhash.contiguous(),
                                 bucket_offsets)
     binf, offf, posf, bucket_ok, total = _bucket_hits_flat(
-        positions, offs, start, end, slot_ok, max_occ, bin_size, hit_cap)
+        positions, offs, start, end, end - start, slot_ok, max_occ,
+        bin_size, hit_cap)
     res = _hits_post(binf, offf, posf, bucket_ok.sum(1), k, threshold,
                      a_cap, sv_bins(bin_size, overlap))
     res["n_flat_raw"] = total

@@ -1,10 +1,12 @@
 """Seeder stage: batched D-SOFT over a read batch, both strands, in one
-device pass (counterpart of ``darwin_tpu/seeding/seeder.py`` without the
-mesh path); chaining runs on the host per anchor.
+device pass (counterpart of ``darwin_tpu/seeding/seeder.py``); chaining
+runs on the host per anchor.  With a mesh the table is sharded by hash
+range over it (``parallel/shard_index.py``), with the same results.
 
-The ``dsoft_count`` pre-pass sizes the hit buffer exactly, and the anchor
-buffer is as wide as the hit buffer, so no batch ever overflows or retries
-(darwin_tpu grows capped buffers through retries to the same result).
+The ``dsoft_count`` pre-pass (on a mesh, the largest per-shard count)
+sizes the hit buffer exactly, and the anchor buffer is as wide as the hit
+buffer, so no batch ever overflows or retries (darwin_tpu grows capped
+buffers through retries to the same result).
 
 Stage seconds (darwin_tpu/seeding/seeder.py's keys, into the caller's
 ``stage_seconds``): ``seed_dispatch`` the device pass and its count fetch,
@@ -37,10 +39,40 @@ class SeedResult:
 
 
 class Seeder:
-    def __init__(self, table, cfg):
+    def __init__(self, table, cfg, mesh=None):
+        """mesh: a ``parallel.shard.Mesh`` (power-of-two size) to shard
+        the pairs table over; a csr table raises."""
         self.table = table
         self.cfg = cfg
         self.max_occ = cfg.max_bucket_occupancy or table.kmer_max_occurence
+        self.sharded = None
+        if mesh is not None:
+            from darwin_tpu_torch.parallel.shard_index import \
+                shard_seed_table
+            self.sharded = shard_seed_table(table, mesh)
+
+    def query_rows(self, reads):
+        """The D-SOFT inputs of a read batch on the table's device: (codes2
+        (2 x reads, Lcap) uint8, each read's forward and reverse-complement
+        2-bit codes; lengths; the keyword arguments of dsoft_count — k, w,
+        num_seeds, max_stride, overlap, max_occ, mq_cap)."""
+        cfg = self.cfg
+        dev = self.table.positions.device
+        lcap = (max(r.length for r in reads) + 15) // 16 * 16
+        codes2 = np.zeros((2 * len(reads), lcap), np.uint8)
+        lengths = np.zeros(2 * len(reads), np.int64)
+        for i, r in enumerate(reads):
+            codes2[2 * i, :r.length] = G.encode2(r.seq)
+            codes2[2 * i + 1, :r.length] = G.encode2(r.rc_seq)
+            lengths[2 * i] = lengths[2 * i + 1] = r.length
+        mq_cap = mq_cap_for(lcap - cfg.seed_size + 1, cfg.num_seeds,
+                            cfg.max_stride, cfg.do_overlap)
+        kw = dict(k=cfg.seed_size, w=cfg.minimizer_window,
+                  num_seeds=cfg.num_seeds, max_stride=cfg.max_stride,
+                  overlap=cfg.do_overlap, max_occ=self.max_occ,
+                  mq_cap=mq_cap)
+        return (torch.from_numpy(codes2).to(dev),
+                torch.from_numpy(lengths).to(dev), kw)
 
     def seed_batch(self, reads, stage_seconds: dict | None = None
                    ) -> SeedResult:
@@ -49,30 +81,23 @@ class Seeder:
         if not reads:
             return SeedResult([], [], 0)
         t0 = time.perf_counter()
-        dev = self.table.positions.device
-        lcap = (max(r.length for r in reads) + 15) // 16 * 16
-        B = 2 * len(reads)
-        codes2 = np.zeros((B, lcap), np.uint8)
-        lengths = np.zeros(B, np.int64)
-        for i, r in enumerate(reads):
-            codes2[2 * i, :r.length] = G.encode2(r.seq)
-            codes2[2 * i + 1, :r.length] = G.encode2(r.rc_seq)
-            lengths[2 * i] = lengths[2 * i + 1] = r.length
-        codes2 = torch.from_numpy(codes2).to(dev)
-        lengths = torch.from_numpy(lengths).to(dev)
-        mq_cap = mq_cap_for(lcap - cfg.seed_size + 1, cfg.num_seeds,
-                            cfg.max_stride, cfg.do_overlap)
-        kw = dict(k=cfg.seed_size, w=cfg.minimizer_window,
-                  num_seeds=cfg.num_seeds, max_stride=cfg.max_stride,
-                  overlap=cfg.do_overlap, max_occ=self.max_occ,
-                  mq_cap=mq_cap, bucket_offsets=self.table.bucket_offsets)
-        need = dsoft_count(codes2, lengths, self.table.sorted_hashes, **kw)
-        hit_cap = max(int(fetch(need.max())), 1)
-        res = dsoft_device(codes2, lengths, self.table.sorted_hashes,
-                           self.table.positions,
-                           threshold=cfg.dsoft_threshold,
-                           bin_size=cfg.bin_size, a_cap=hit_cap,
-                           hit_cap=hit_cap, **kw)
+        codes2, lengths, kw = self.query_rows(reads)
+        B = codes2.shape[0]
+        if self.sharded is not None:
+            from darwin_tpu_torch.parallel.shard_index import dsoft_sharded
+            res = dsoft_sharded(codes2, lengths, self.sharded,
+                                threshold=cfg.dsoft_threshold,
+                                bin_size=cfg.bin_size, **kw)
+        else:
+            kw["bucket_offsets"] = self.table.bucket_offsets
+            need = dsoft_count(codes2, lengths, self.table.sorted_hashes,
+                               **kw)
+            hit_cap = max(int(fetch(need.max())), 1)
+            res = dsoft_device(codes2, lengths, self.table.sorted_hashes,
+                               self.table.positions,
+                               threshold=cfg.dsoft_threshold,
+                               bin_size=cfg.bin_size, a_cap=hit_cap,
+                               hit_cap=hit_cap, **kw)
         counts = torch.stack([res["n_hits"], res["n_anchors"],
                               res["n_queried_buckets"], res["n_capped"]])
         counts = fetch(counts)

@@ -2,8 +2,9 @@
 process with ``sys.modules["jax"] = None`` and ``sys.modules["darwin_tpu"]
 = None`` (any import of either raises) imports every module of
 darwin_tpu_torch and chip_smoke.py, and aligns a tiny genome through the
-CLI on the CPU in both modes; a source scan refuses an import of either in
-the package and in chip_smoke.py."""
+CLI on the CPU in both modes, and on a CPU mesh of 2 with the sharded
+index; a source scan refuses an import of either in the package and in
+chip_smoke.py."""
 
 import os
 import pkgutil
@@ -39,6 +40,12 @@ with contextlib.redirect_stdout(out):
     assert cli.main(["ref.fa", "reads.fa", "0", "--device=cpu"]) == 0
 print("SAM_RECORDS", sum(1 for l in out.getvalue().splitlines()
                          if not l.startswith("@")))
+sam = out.getvalue()
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    assert cli.main(["ref.fa", "reads.fa", "0", "--device=cpu", "--mesh=2",
+                     "--shard-index"], spec_k=1) == 0
+print("MESH_SAM_SAME", out.getvalue() == sam)
 open("params.cfg", "w").write("[DSOFT_params]\nseed_size = 10\n"
                               "[GACT_first_tile]\nmin_overlap = 300\n")
 with open("ovl.fa", "w") as f:
@@ -70,7 +77,10 @@ def test_port_imports_and_runs_without_jax(tmp_path):
     assert {"darwin_tpu_torch.index.minimizers",
             "darwin_tpu_torch.index.seed_table",
             "darwin_tpu_torch.seeding.dsoft",
-            "darwin_tpu_torch.utils.synthgenome"} <= set(mods)
+            "darwin_tpu_torch.utils.synthgenome",
+            "darwin_tpu_torch.parallel.shard",
+            "darwin_tpu_torch.parallel.shard_index",
+            "darwin_tpu_torch.parallel.multihost"} <= set(mods)
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="2")
     proc = subprocess.run(
         [sys.executable, "-c", f"MODULES = {mods!r}\n" + CHILD,
@@ -79,6 +89,7 @@ def test_port_imports_and_runs_without_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     n = int(re.search(r"SAM_RECORDS (\d+)", proc.stdout).group(1))
     assert n >= 2
+    assert "MESH_SAM_SAME True" in proc.stdout
     n = int(re.search(r"MHAP_RECORDS (\d+)", proc.stdout).group(1))
     assert n >= 4                 # o0-o1 and o1-o2, each from both sides
 
