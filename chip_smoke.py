@@ -17,8 +17,10 @@ Phases (each prints its lines; any failure raises, so the exit is nonzero):
      look-ahead and than max_tb, the next-tile kernel (request, gathered
      tiles and sizes) on the walker's records, on synthetic ones and at
      odd record heights, and the op-rate probe in its five
-     modes: exact integer equality; each kernel's time per call of its
-     wrapper (calls enqueued back to back between two events) and its
+     modes at 1, 3 and 8192 programs: exact integer equality; the probe's
+     program loop holds every rep of its chain (SASS); each kernel's time
+     per call of its wrapper (calls enqueued back to back between two
+     events) and its
      device self time under torch.profiler beside its bound, the DP's rows
      per lane and warps per tile, its time on either side of the batch
      sizes where the warps per tile change, the trace's share of its time,
@@ -38,7 +40,8 @@ Phases (each prints its lines; any failure raises, so the exit is nonzero):
      counters and chains (chains of 2: the CPU's twins pay for every
      level), then 512 x 10 kb reads at 10x coverage against
      themselves through the CLI; pairs checked against the simulation;
-  8. the op-rate probe through its own entry point;
+  8. the op-rate probe through its own entry point, with the SM clock
+     read beside its windows;
   9. the cases of phases 5 and 7 again without speculation, one read batch
      at a time (spec_k=1, pipeline_depth=1): SAM / MHAP and the counter
      block identical to the defaults', and more extension rounds;
@@ -120,9 +123,11 @@ KERNELS = {
 # 128 lanes x 2 (an FMA is two) x 1.98 GHz.  An integer add, max, compare
 # or select counts once and can issue on the int32 lanes or, as a
 # multiply-add, on fp32 lanes, so the peak taken for them is all 128 lanes:
-# half that figure, 33.5 T/s.  It is above every rate the op-rate probe
-# sustains (16.5 T instructions/s on a max/add chain, 23.2 T/s on
-# compare + select + add), so no bound here is looser than the card.  The
+# half that figure, 33.5 T/s: one warp-instruction a clock on each of an
+# SM's four schedulers.  The op-rate probe sustains 0.97 of it on a
+# max/add chain (32.4 T thread-instructions/s) and on compare + select +
+# add (32.3 T/s; NVIDIA H100 80GB HBM3, 700 W, SM clock read at 1980 MHz),
+# so no bound here is looser than the card.  The
 # probe's own rows take the larger of this and its ALU-only operations
 # (min / max, logic) over the 64 int32 lanes (tools/vpu_probe.mode_bounds);
 # the DP's maxes pair with its adds into DPX instructions, so it keeps
@@ -718,39 +723,70 @@ def phase_kernels(seed, kstats):
     _check_next(rng, kstats, default)
 
     # the op-rate probe, every mode, against its plain twin: exact
-    # (wraparound included: the chains overflow int32 within 64 reps)
+    # (wraparound included: the chains overflow int32 within 64 reps) at
+    # one program, at fewer programs than the persistent grid has blocks
+    # for, and at the timed count
     x = torch.from_numpy(rng.integers(0, 1 << 20, (vpu_probe.QT,
                                                    vpu_probe.LANES))
                          .astype(np.int32)).to(dev)
     programs = 8192
     st = kstats["int_probe"]
     # each mode's bound by its operations and the pipes that issue them,
-    # with the compiled chain's split beside it (vpu_probe.mode_bounds)
-    pipe_bounds = vpu_probe.mode_bounds(programs, sass)
+    # with the compiled kernel's split beside it (vpu_probe.mode_bounds)
+    blocks = {m: vpu_probe.grid_blocks(m, programs) for m in vpu_probe.MODES}
+    pipe_bounds = vpu_probe.mode_bounds(programs, sass, blocks)
     for mode in vpu_probe.MODES:
-        k = vpu_probe.probe_block(x, mode, programs)
         p = vpu_probe.probe_plain(x, mode)
-        torch.cuda.synchronize()
-        err = int((k.long() - p.long()).abs().max())
-        check(err == 0, f"int_probe != plain in mode {mode}: {err}")
+        for n in (1, 3, programs):
+            k = vpu_probe.probe_block(x, mode, n)
+            torch.cuda.synchronize()
+            err = int((k.long() - p.long()).abs().max())
+            check(err == 0, f"int_probe != plain in mode {mode} at {n} "
+                            f"programs: {err}")
+            st["max_abs_err"] = max(st.get("max_abs_err", 0), err)
         kms = _time_ms(lambda: vpu_probe.probe_block(x, mode, programs), 5)
         pms = _time_ms(lambda: vpu_probe.probe_plain(x, mode), 1)
         n_ops = x.numel() * programs * 2 * vpu_probe.REPS
         pb = pipe_bounds[mode]
         cp = pb["compiled"]
-        bms, bby = bound(2 * x.numel() * 4 * programs, 0)
+        # the block read once and written once
+        bms, bby = bound(2 * x.numel() * 4, 0)
         if pb["bound_ms"] > bms:
             bms, bby = pb["bound_ms"], "operations"
-        say(3, f"int_probe mode {mode} programs={programs}: exact; kernel "
+        say(3, f"int_probe mode {mode}: exact at programs 1, 3, "
+               f"{programs}; at {programs} on {blocks[mode]} blocks kernel "
                f"{kms:.3f} ms = {n_ops / kms / 1e9:.3f} Tops (2 ops per "
                f"rep), plain (one program) {pms:.2f} ms, bound {bms:.4f} "
                f"ms by {bby} ({pb['ops'][0]} ALU-only of {pb['ops'][1]} "
                f"operations per element, set by {pb['bound_pipe']}) = "
-               f"{bms / kms:.3f} of the time; the compiled chain's floor "
+               f"{bms / kms:.3f} of the time; the compiled kernel's floor "
                f"{cp['floor_ms']:.4f} ms by {cp['floor_pipe']} = "
-               f"{cp['floor_ms'] / kms:.3f} (instructions per thread "
+               f"{cp['floor_ms'] / kms:.3f} (thread-instructions executed "
                f"{cp['pipes']}, others {cp['other']})")
-        st["max_abs_err"] = max(st.get("max_abs_err", 0), err)
+        fn = next(f for f in sass
+                  if f"int_probe_kernelILi{vpu_probe.MODES.index(mode)}E"
+                  in f)
+        loop = sum(sass[fn]["loop"].values())
+        every = sum(cp["pipes"].values()) + sum(cp["other"].values())
+        top = sorted(sass[fn]["loop"].items(), key=lambda kv: -kv[1])[:6]
+        say(3, f"int_probe SASS, mode {mode}: {loop} instructions in the "
+               f"program loop for {vpu_probe.R} elements x 64 reps "
+               f"({cp['loop_per_element']:.2f} per element against the "
+               f"chain's {pb['ops'][1]} operations; ALU-only "
+               f"{cp['loop_alu_per_element']:.2f} against "
+               f"{pb['ops'][0]}), "
+               f"{sass[fn]['total'] - loop} outside it; {every} "
+               f"thread-instructions a launch = "
+               f"{every / (kms * 1e-3) / (vpu_probe.SMS * vpu_probe.CLOCK_HZ):.1f}"
+               f" per SM per clock at 1.98 GHz; loop: "
+               + ", ".join(f"{o} {n}" for o, n in top))
+        # the timed work is the function's: every program runs every rep
+        # of the chain, so each rep's max, min or xor is in the loop (its
+        # constant adds the compiler may fold: vpu_probe.mode_bounds)
+        check(cp["loop_alu_per_element"] >= pb["ops"][0],
+              f"int_probe mode {mode}: the program loop holds "
+              f"{cp['loop_alu_per_element']:.2f} ALU-only instructions per "
+              f"element, fewer than the chain's {pb['ops'][0]}")
         if mode == "max":
             # every program computes the same block, so the twin's one
             # pass is the same function of the same input
@@ -759,14 +795,6 @@ def phase_kernels(seed, kstats):
                 lambda: vpu_probe.probe_block(x, mode, programs),
                 "int_probe_kernel<0>")}, 5)["probe"]
             say(3, f"int_probe mode max: {self_ms:.3f} ms device self time")
-    for fn, info in sorted(sass.items()):
-        m = re.search(r"int_probe_kernelILi(\d)E", fn)
-        if m:
-            top = sorted(info["all"].items(), key=lambda kv: -kv[1])[:6]
-            say(3, f"int_probe SASS, mode "
-                   f"{vpu_probe.MODES[int(m.group(1))]}: "
-                   f"{info['total']} instructions for 12 elements x 64 "
-                   f"reps; " + ", ".join(f"{o} {n}" for o, n in top))
 
 
 # ---------------------------------------------------------------- phase 4-8
@@ -1107,12 +1135,20 @@ def phase_probe(kstats, smi):
     for mode in vpu_probe.MODES:
         r = res[mode]
         check(0 < r["tops"] < 100, f"implausible rate in mode {mode}: {r}")
+        clk, watts = r["sm_clock_mhz"], r["power_w"]
+        check(clk is not None, f"no SM clock read beside mode {mode}")
         say(8, f"int32 op rate, mode {mode}: {r['tops']:.3f} Tops (2 ops "
                f"per rep); {r['ms']:.3f} / {r['ms_median']:.3f} / "
                f"{r['ms_max']:.3f} ms per launch (min / median / max of 3 "
                f"windows of {res['launches_per_window']}); bound "
                f"{r['bound_ms']:.4f} ms by {r['bound_pipe']}, share "
-               f"{r['share']:.3f}; the compiled chain's floor "
+               f"{r['share']:.3f} at 1.98 GHz, share_at_clock "
+               f"{r['share_at_clock']:.3f}; sm_clock_mhz {clk['min']:.0f} / "
+               f"{clk['median']:.0f} / {clk['max']:.0f}, power "
+               + (f"{watts['min']:.1f} / {watts['median']:.1f} / "
+                  f"{watts['max']:.1f} W" if watts else "not read")
+               + f" (min / median / max of the readings beside the "
+               f"windows); the compiled kernel's floor "
                f"{r['compiled']['floor_ms']:.4f} ms by "
                f"{r['compiled']['floor_pipe']}, share "
                f"{r['compiled']['share']:.3f} [{smi}]")

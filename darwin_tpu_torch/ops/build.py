@@ -101,6 +101,8 @@ def _bind(lib) -> None:
     lib.gact_next.restype = i
     lib.int_probe.argtypes = [p, p, i, i, p]
     lib.int_probe.restype = i
+    lib.int_probe_grid.argtypes = [i, i]
+    lib.int_probe_grid.restype = i
 
 
 def load():

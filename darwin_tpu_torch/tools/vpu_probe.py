@@ -4,7 +4,8 @@
     python -m darwin_tpu_torch.tools.vpu_probe [--programs N] [--samples N]
 
 prints one JSON line ``{"device": ..., "power_limit": ..., mode: {"tops":
-..., "ms": ..., "bound_ms": ..., "share": ..., ...}}``.  The tile DP
+..., "ms": ..., "bound_ms": ..., "share": ..., "sm_clock_mhz": {"min",
+"median", "max"}, "share_at_clock": ..., ...}}``.  The tile DP
 (``csrc/gact_dp.cu``) is made of these ops — int32 max, add, compare +
 select — so its bound on a card is its integer ops per cell times its cells
 over the rate measured here.
@@ -14,10 +15,13 @@ Each mode's bound comes from its own operations (``mode_bounds``,
 logic, compare + select) over its 64 int32 lanes per SM and all of them
 over the 128 lanes of the ALU and FMA pipes (an add issues on either).
 Every mode's chain is at most half ALU-only, so every bound is the
-128-lane one.  ``share`` is that bound over the mode's fastest time.  The
-compiled chain (``cuobjdump`` SASS, counted per thread; the chains are
-unrolled, so the static count is the executed one) is put through the
-same rule beside it, as the compiler's split: its address and loop
+128-lane one.  ``share`` is that bound over the mode's fastest time, at
+the published 1.98 GHz; ``share_at_clock`` the same at the median SM
+clock that ``nvidia-smi`` read beside the timed windows
+(``sm_clock_mhz``).  The compiled kernel (``cuobjdump`` SASS; the chain
+is unrolled inside a loop over the programs, so the loop's span runs once
+per program and the rest once per thread: ``executed``) is put through
+the same rule beside it, as the compiler's split: its address and loop
 instructions are not the function's, so that floor is no bound.  The tile
 DP's bound (``chip_smoke.py``) divides all its operations by the 128
 lanes: its maxes and adds pair into DPX add-max and three-way max
@@ -46,6 +50,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import torch
@@ -120,52 +125,79 @@ SASS_CLASS = {"IMNMX": "alu", "VIMNMX": "alu", "VIADDMNMX": "alu",
               "SHFL": "shfl"}
 # the card's SMs and boost clock (NVIDIA's H100 SXM data sheet)
 SMS, CLOCK_HZ = 132, 1.98e9
-# a program is LANES / 8 thread blocks of 256 threads (csrc/int_probe.cu)
-THREADS_PER_PROGRAM = LANES // 8 * 256
+# csrc/int_probe.cu's geometry: R rows a thread, COLS columns a block of
+# BLOCK_THREADS threads, a program LANES / COLS blocks' work
+R, COLS = 12, 8
+BLOCK_THREADS = QT // R * COLS
+THREADS_PER_PROGRAM = LANES // COLS * BLOCK_THREADS
 
 
-def floor_ms(n: int, alu=0, fma=0, every=0, shfl=0):
-    """The least ms, and the term that sets it, for ``n`` threads (or
-    elements) that each issue ``alu`` ALU-only, ``fma`` FMA-only and
-    ``shfl`` shuffle instructions and ``every`` integer ones in all."""
+def floor_ms(alu=0, fma=0, every=0, shfl=0):
+    """The least ms, and the term that sets it, for ``alu`` ALU-only,
+    ``fma`` FMA-only and ``shfl`` shuffle thread-instructions (or element
+    operations) and ``every`` integer ones in all."""
     per = {"alu": alu, "fma": fma, "alu+fma": every, "shfl": shfl}
-    ms = {p: k * n / (LANES_OF[p] * SMS * CLOCK_HZ) * 1e3
-          for p, k in per.items()}
+    ms = {p: k / (LANES_OF[p] * SMS * CLOCK_HZ) * 1e3 for p, k in per.items()}
     pipe = max(ms, key=ms.get)
     return ms[pipe], pipe
 
 
-def mode_bounds(programs: int, sass: dict | None = None) -> dict:
+def executed(info: dict, programs: int, blocks: int) -> dict:
+    """Thread-instructions one launch of ``programs`` programs on
+    ``blocks`` blocks executes, by opcode, from a kernel's ``sass_counts()``
+    entry: the program loop's span ("loop") once per program and column
+    slice (THREADS_PER_PROGRAM threads a program), every other instruction
+    once per thread of the grid (BLOCK_THREADS a block: the load, the store
+    and the loop's way in and out; a block with no program runs fewer)."""
+    loop = info["loop"]
+    return {op: loop.get(op, 0) * programs * THREADS_PER_PROGRAM
+            + (n - loop.get(op, 0)) * blocks * BLOCK_THREADS
+            for op, n in info["all"].items()}
+
+
+def mode_bounds(programs: int, sass: dict | None = None,
+                blocks: dict | None = None) -> dict:
     """Each mode's bound for one launch of ``programs`` programs, from its
     operations (``MODE_OPS``): {mode: {"bound_ms", "bound_pipe", "ops":
-    [ALU-only, all] per element}}.  With ``sass`` (``sass_counts()``) also
-    "compiled": the compiled chain's instructions per thread by class,
-    the opcodes outside the classes ("other") and the same floor for them
-    ("floor_ms", "floor_pipe") — the compiler's split, not a bound of the
-    function."""
+    [ALU-only, all] per element}}.  With ``sass`` (``sass_counts()``) and
+    ``blocks`` ({mode: blocks of the launch}, ``grid_blocks``) also
+    "compiled": the thread-instructions the launch executes (``executed``)
+    by class, the opcodes outside the classes ("other"), the same floor for
+    them ("floor_ms", "floor_pipe") — the compiler's split, not a bound of
+    the function — and the program loop's instructions per element
+    ("loop_per_element": about the mode's operations, fewer where the
+    compiler folds a chain's constant adds into three-source adds and
+    add-mins) and its ALU-only ones ("loop_alu_per_element": every rep's
+    max, min or xor, which no folding removes, so at least the mode's
+    ALU-only operations when every program computes the whole chain)."""
     out = {}
     for mode, (alu, every) in MODE_OPS.items():
-        ms, pipe = floor_ms(QT * LANES * programs, alu=alu, every=every)
+        n = QT * LANES * programs
+        ms, pipe = floor_ms(alu=alu * n, every=every * n)
         out[mode] = {"bound_ms": ms, "bound_pipe": pipe,
                      "ops": [alu, every]}
     for fn, info in (sass or {}).items():
         m = re.search(r"int_probe_kernelILi(\d)E", fn)
         if not m:
             continue
+        mode = MODES[int(m.group(1))]
         pipes = dict.fromkeys(("alu", "fma", "add", "shfl"), 0)
         other = {}
-        for op, n in info["all"].items():
+        for op, n in executed(info, programs, blocks[mode]).items():
             if op in SASS_CLASS:
                 pipes[SASS_CLASS[op]] += n
             else:
                 other[op] = n
-        ms, pipe = floor_ms(programs * THREADS_PER_PROGRAM,
-                            alu=pipes["alu"], fma=pipes["fma"],
+        ms, pipe = floor_ms(alu=pipes["alu"], fma=pipes["fma"],
                             every=pipes["alu"] + pipes["fma"] + pipes["add"],
                             shfl=pipes["shfl"])
-        out[MODES[int(m.group(1))]]["compiled"] = {
+        out[mode]["compiled"] = {
             "pipes": pipes, "other": other, "floor_ms": ms,
-            "floor_pipe": pipe}
+            "floor_pipe": pipe,
+            "loop_per_element": sum(info["loop"].values()) / R,
+            "loop_alu_per_element": sum(
+                n for op, n in info["loop"].items()
+                if SASS_CLASS.get(op) == "alu") / R}
     return out
 
 
@@ -193,6 +225,18 @@ def probe_block(x: torch.Tensor, mode: str, programs: int = 1):
     return out
 
 
+def grid_blocks(mode: str, programs: int, device="cuda") -> int:
+    """The blocks (of BLOCK_THREADS threads) one launch of ``programs``
+    programs in ``mode`` takes on the card: as many as it holds at once,
+    no more than the programs need (csrc/int_probe.cu:grid_of)."""
+    dev = torch.device(device)
+    with torch.cuda.device(dev):
+        n = build.load().int_probe_grid(MODES.index(mode), int(programs))
+    if n <= 0:
+        raise RuntimeError(f"int_probe_grid failed: CUDA error {-n}")
+    return n
+
+
 def power_limit() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -201,14 +245,109 @@ def power_limit() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
+SMI_CLOCKS = ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+              "--format=csv,noheader,nounits"]
+
+
+def parse_clocks(text: str) -> tuple[float, float | None] | None:
+    """(SM clock MHz, power draw W) from one ``SMI_CLOCKS`` reading — its
+    first line, the first card, as ``power_limit`` reads; None when the
+    clock is not a number (``[N/A]``), and a power that is not one is
+    None."""
+    lines = text.strip().splitlines()
+    fields = [f.strip() for f in lines[0].split(",")] if lines else []
+
+    def num(f):
+        try:
+            return float(f)
+        except ValueError:
+            return None
+    mhz = num(fields[0]) if fields else None
+    if mhz is None:
+        return None
+    return mhz, num(fields[1]) if len(fields) > 1 else None
+
+
+def spread(values) -> dict | None:
+    """{"min", "median", "max"} of the values, None when there are none."""
+    values = [v for v in values if v is not None]
+    if not values:
+        return None
+    return {"min": min(values), "median": float(np.median(values)),
+            "max": max(values)}
+
+
+class ClockSampler:
+    """Reads ``SMI_CLOCKS`` over and over in a thread while the block runs:
+    the first reading starts on entry, and readings go on until exit (the
+    one under way then finishes).  ``readings``: (MHz, W) pairs."""
+
+    def __init__(self):
+        self.readings = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while True:
+            got = parse_clocks(subprocess.run(
+                SMI_CLOCKS, capture_output=True, text=True).stdout)
+            if got is not None:
+                self.readings.append(got)
+            if self._stop.is_set():
+                return
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+
+def time_windows(launch, samples: int, launches: int, dev) -> tuple:
+    """``samples`` windows of ``launches`` calls of ``launch`` (after one to
+    warm), CUDA events around each window, the SM clock read beside each:
+    (ms per launch of each window, the (MHz, W) readings of all)."""
+    launch()
+    ms, readings = [], []
+    for _ in range(samples):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with ClockSampler() as clocks:
+            start.record()
+            for _ in range(launches):
+                launch()
+            end.record()
+            torch.cuda.synchronize(dev)
+        ms.append(start.elapsed_time(end) / launches)
+        readings += clocks.readings
+    return ms, readings
+
+
+def rates(ms: list, readings: list, programs: int, bound_ms: float) -> dict:
+    """A mode's JSON entry from its windows: "tops" (2 ops per rep and
+    element, from the fastest window), "ms" / "ms_median" / "ms_max",
+    "sm_clock_mhz" and "power_w" (``spread`` of the readings), "bound_ms",
+    "share" = bound_ms / ms at the published clock and "share_at_clock" at
+    the median sampled one (None without a reading)."""
+    ops = QT * LANES * programs * 2 * REPS
+    clock = spread(r[0] for r in readings)
+    return {"tops": ops / (min(ms) * 1e-3) / 1e12, "ms": min(ms),
+            "ms_median": float(np.median(ms)), "ms_max": max(ms),
+            "sm_clock_mhz": clock, "power_w": spread(r[1] for r in readings),
+            "bound_ms": bound_ms, "share": bound_ms / min(ms),
+            "share_at_clock": None if clock is None else
+            bound_ms * CLOCK_HZ / (clock["median"] * 1e6) / min(ms)}
+
+
 def probe(modes=MODES, programs: int = 8192, samples: int = 5,
-          launches: int = 8, seed: int = 0, device="cuda") -> dict:
+          launches: int = 32, seed: int = 0, device="cuda") -> dict:
     """Time each mode on the card: ``samples`` windows of ``launches``
-    launches of ``programs`` programs, CUDA events around each window.
-    Returns {mode: {"tops" (from the fastest window), "ms" per launch
-    min / median / max over the windows, ``mode_bounds``' "bound_ms" and
-    "bound_pipe", "share" = bound_ms / ms, and "compiled": the compiled
-    chain's split with its floor's share}}."""
+    launches of ``programs`` programs, CUDA events around each window and
+    the SM clock read beside it (``time_windows``).  Returns {mode:
+    ``rates``' entry with ``mode_bounds``' "bound_pipe" and "compiled":
+    the compiled kernel's split with its floor's share}."""
     dev = torch.device(device)
     if dev.type != "cuda":
         raise RuntimeError("the op-rate probe times the card; device must "
@@ -219,43 +358,32 @@ def probe(modes=MODES, programs: int = 8192, samples: int = 5,
     out = {"device": torch.cuda.get_device_name(dev),
            "power_limit": power_limit(), "programs": programs,
            "launches_per_window": launches}
-    ops = QT * LANES * programs * 2 * REPS
+    blocks = {m: grid_blocks(m, programs, dev) for m in MODES}
+    bounds = mode_bounds(programs, sass_counts(), blocks)
     for mode in modes:
-        probe_block(x, mode, programs)              # warm
-        ms = []
-        for _ in range(samples):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(launches):
-                probe_block(x, mode, programs)
-            end.record()
-            torch.cuda.synchronize(dev)
-            ms.append(start.elapsed_time(end) / launches)
-        out[mode] = {"tops": ops / (min(ms) * 1e-3) / 1e12,
-                     "ms": min(ms), "ms_median": float(np.median(ms)),
-                     "ms_max": max(ms)}
-    bounds = mode_bounds(programs, sass_counts())
-    for mode in modes:
+        ms, readings = time_windows(
+            lambda: probe_block(x, mode, programs), samples, launches, dev)
         b = bounds[mode]
-        c = b["compiled"]
-        c["share"] = c["floor_ms"] / out[mode]["ms"]
-        out[mode].update(bound_ms=b["bound_ms"], bound_pipe=b["bound_pipe"],
-                         share=b["bound_ms"] / out[mode]["ms"], compiled=c)
+        c = dict(b["compiled"], share=b["compiled"]["floor_ms"] / min(ms))
+        out[mode] = dict(rates(ms, readings, programs, b["bound_ms"]),
+                         bound_pipe=b["bound_pipe"], blocks=blocks[mode],
+                         compiled=c)
     return out
 
 
-def sass_counts() -> dict:
-    """Instruction counts per kernel of the built library, from
-    ``cuobjdump -sass``: {kernel: {"total": n, "loop": {opcode: n},
-    "all": {opcode: n}, "loops": [{opcode: n}, ...]}} where "loops" holds
-    the span of every backward branch and "loop" the longest of them (the
-    probe's chains are unrolled and have none worth the name).  Needs the
-    CUDA toolkit."""
-    build.load()                      # builds the library if needed
+def sass_counts(path: str | None = None) -> dict:
+    """Instruction counts per kernel of a library (the built one by
+    default), from ``cuobjdump -sass``: {kernel: {"total": n, "loop":
+    {opcode: n}, "all": {opcode: n}, "loops": [{opcode: n}, ...]}} where
+    "loops" holds the span of every backward branch and "loop" the longest
+    of them (the probe's program loop, its unrolled chain inside).  Needs
+    the CUDA toolkit."""
+    if path is None:
+        build.load()                  # builds the library if needed
+        path = build.BUILD_INFO["path"]
     tool = shutil.which("cuobjdump") or os.path.join(
         os.path.dirname(build.nvcc_path()), "cuobjdump")
-    text = subprocess.run([tool, "-sass", build.BUILD_INFO["path"]],
+    text = subprocess.run([tool, "-sass", path],
                           capture_output=True, text=True, check=True).stdout
     out = {}
     name, ins = None, []
