@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--seed N] [--phases 1,2,3]
 
 (--phases runs a subset — e.g. a short first call after a kernel change —
-and then prints no result lines.)
+and then prints no result lines; so does a --seed other than the goldens',
+whose real-size runs are then held to nothing of darwin_tpu's.)
 
 Phases (each prints its lines; any failure raises, so the exit is nonzero):
   1. environment: torch, CUDA, nvcc, the native host library (must load),
@@ -32,14 +33,20 @@ Phases (each prints its lines; any failure raises, so the exit is nonzero):
   5. reference-guided mode at real size through the CLI, at the defaults:
      a synthetic genome of E. coli K-12 MG1655's length, 512 simulated
      10 kb reads plus 16 with a planted 1.5 kb deletion; loci checked
-     against the simulation;
+     against the simulation; parity with the ``ecoli`` golden
+     (darwin_tpu_torch/goldens/real_size.json: darwin_tpu's own run on
+     the CPU, made by ``tests/test_torch_goldens.py --make``): the input
+     files' sha256 first, then stdout's sha256 and the 7-line counter
+     block; a mismatch names the first 20 differing records and every
+     differing counter line;
   6. the same case with a generic-scoring params.cfg (gap opens cheaper
      than gap extends), which darwin_tpu's DP needs a branch of its own
-     for;
+     for; parity with the ``ecoli_generic`` golden;
   7. overlap mode: a small run on cuda and on cpu with identical MHAP,
      counters and chains (chains of 2: the CPU's twins pay for every
      level), then 512 x 10 kb reads at 10x coverage against
-     themselves through the CLI; pairs checked against the simulation;
+     themselves through the CLI; parity with the ``overlap`` golden
+     (MHAP); pairs checked against the simulation;
   8. the op-rate probe through its own entry point, with the SM clock
      read beside its windows;
   9. the cases of phases 5 and 7 again without speculation, one read batch
@@ -50,7 +57,9 @@ Phases (each prints its lines; any failure raises, so the exit is nonzero):
      pairs table (automatic method) and the csr table the same bucket for
      bucket, the CLI with --index-layout=pairs and =csr giving the same SAM
      and counter block, the occupancy cap and the large tiles live, >= 90%
-     of reads on their locus;
+     of reads on their locus; then one read in 32 (17 reads,
+     reads_sub.fa) through the CLI with each layout: parity with the
+     ``chr21_sub`` golden;
  11. GRCh38's coordinate space (24 chromosomes at their lengths, 3.09 Gbp,
      uniform random bases): the csr index at k = 14, w = 3, the pairs
      table by the automatic method (the streaming build) the same bucket
@@ -996,6 +1005,47 @@ def _large_tiles(blk):
                .split(":")[1])
 
 
+def _golden_inputs(phase, case, seed, tmp, argv):
+    """At the goldens' seed, the golden of ``case`` (darwin_tpu's run on
+    the CPU, darwin_tpu_torch/goldens/real_size.json) after checking that
+    the inputs written in ``tmp`` and the CLI's argv are the golden's;
+    None at another seed."""
+    from darwin_tpu_torch.utils import goldens
+    if seed != goldens.SEED:
+        say(phase, f"--seed {seed} is not the goldens' ({goldens.SEED}): "
+                   f"{case} not held to darwin_tpu's output")
+        return None
+    entry = goldens.load()[case]
+    check(entry["argv"] == argv, f"{case}: argv {argv}, the golden's "
+          f"{entry['argv']}")
+    bad = goldens.diff_inputs(entry, goldens.input_digests(
+        tmp, entry["inputs"]))
+    for ln in bad:
+        say(phase, f"{case} input differs: {ln}")
+    check(not bad, f"{case}: the inputs are not the golden's")
+    return entry
+
+
+def _golden_outputs(phase, case, entry, out, blk, what=""):
+    """Hold a run's stdout and counter block to ``entry`` (a no-op without
+    one); on a mismatch print the differing records and counter lines,
+    then fail."""
+    from darwin_tpu_torch.utils import goldens
+    if entry is None:
+        return
+    bad = goldens.diff_outputs(entry, out, blk)
+    for ln in bad:
+        say(phase, f"{case}{what} differs from darwin_tpu: {ln}")
+    check(not bad, f"{case}{what}: output or counters differ from "
+          f"darwin_tpu's")
+    say(phase, f"{case}{what}: inputs ({', '.join(entry['inputs'])}) equal "
+               f"the golden's; stdout sha256 {entry['stdout']['sha256']} "
+               f"({entry['stdout']['records']} records) and the 7-line "
+               f"counter block equal darwin_tpu's on the CPU "
+               f"(backend {entry['darwin_tpu']['backend']})"
+               + (f"; {entry['reduced']}" if entry["reduced"] else ""))
+
+
 def phase_real(phase, seed, kstats, smi, params_cfg, min_share, tmp,
                into=None):
     """Reference-guided mode at real size through the CLI: the E. coli
@@ -1008,8 +1058,12 @@ def phase_real(phase, seed, kstats, smi, params_cfg, min_share, tmp,
     if params_cfg:
         with open(f"{tmp}/params.cfg", "w") as f:
             f.write(params_cfg)
-    sam, blk, launches, chains = _run_cli(phase, ["ref.fa", "reads.fa", "0"],
-                                          tmp, len(truth), smi, into=into)
+    case = "ecoli_generic" if params_cfg else "ecoli"
+    argv = ["ref.fa", "reads.fa", "0"]
+    golden = _golden_inputs(phase, case, seed, tmp, argv)
+    sam, blk, launches, chains = _run_cli(phase, argv, tmp, len(truth), smi,
+                                          into=into)
+    _golden_outputs(phase, case, golden, sam, blk)
     share = _locus_share(phase, sam, truth, f"{synth.ECOLI_LEN} bp")
     check(share >= min_share,
           f"only {share:.4f} of reads on the true locus")
@@ -1065,9 +1119,11 @@ def phase_overlap(seed, kstats, smi, tmp_real, stats):
 
     min_overlap = Config().min_overlap
     truth = _case(tmp_real, "overlap", seed)
-    mhap, blk, launches, chains = _run_cli(
-        7, ["reads.fa", "reads.fa", "1"], tmp_real, len(truth), smi,
-        into=stats)
+    argv = ["reads.fa", "reads.fa", "1"]
+    golden = _golden_inputs(7, "overlap", seed, tmp_real, argv)
+    mhap, blk, launches, chains = _run_cli(7, argv, tmp_real, len(truth),
+                                           smi, into=stats)
+    _golden_outputs(7, "overlap", golden, mhap, blk)
     check(not mhap.startswith("@"), "overlap mode printed a SAM header")
     # the read index is one work list: a handful of device batches
     check(stats["index_build"]["batches"] <= 4,
@@ -1109,8 +1165,9 @@ def phase_overlap(seed, kstats, smi, tmp_real, stats):
            f" {found}/{len(want)} = {found / len(want):.4f} of the true "
            f"overlaps over {2 * min_overlap} bp found [{smi}]")
     check(real >= 0.95 * len(pairs), "printed pairs do not overlap")
-    # floors set from a correct run (identical to darwin_tpu's on the CPU
-    # at a small size): the (-, +) quarter of the pairs is found only when
+    # floors set from a correct run, whose MHAP and counters are
+    # darwin_tpu's byte for byte (the overlap golden, held above at the
+    # goldens' seed): the (-, +) quarter of the pairs is found only when
     # the overlap is most of the read
     check(found >= 0.75 * len(want), "true overlaps were missed")
     long_hit, long_n = bands[max(bands)]
@@ -1301,6 +1358,20 @@ def phase_chr21(seed, kstats, smi, tmp):
     check(_large_tiles(blk) > 0, "no large tiles fired")
     check(share >= MIN_REPEAT_LOCUS_SHARE,
           f"only {share:.4f} of reads on the true locus")
+    # darwin_tpu's run on the CPU covers a subset of the reads (its CPU
+    # time): the CLI on that subset with each layout, held to the golden
+    from darwin_tpu_torch.utils import goldens
+    n = synth.subset_reads(f"{tmp}/reads.fa", f"{tmp}/reads_sub.fa",
+                           slice(None, None,
+                                 goldens.CASES["chr21_sub"]["subset"]))
+    argv = ["ref.fa", "reads_sub.fa", "0"]
+    golden = _golden_inputs(10, "chr21_sub", seed, tmp, argv)
+    for layout in ("pairs", "csr"):
+        sam, blk, launches, _ = _run_cli(
+            10, argv + [f"--index-layout={layout}"], tmp, n, smi)
+        _golden_outputs(10, "chr21_sub", golden, sam, blk,
+                        f" (--index-layout={layout})")
+        _took(kstats, launches, DEFAULT_PATH)
 
 
 def phase_human(seed, kstats, smi):
@@ -1664,6 +1735,7 @@ def main(argv=None):
               "false)", file=sys.stderr)
         return 2
     import darwin_tpu_torch  # noqa: F401  (fails outside a checkout)
+    from darwin_tpu_torch.utils import goldens
     from darwin_tpu_torch.utils.synth import GENERIC_PARAMS_CFG
     phases = {int(p) for p in args.phases.split(",")}
     kstats = {k: {} for k in KERNELS}
@@ -1709,7 +1781,7 @@ def main(argv=None):
                 phase_chr21(args.seed, kstats, smi, tmp)
     if 11 in phases:
         phase_human(args.seed, kstats, smi)
-    if phases != ALL_PHASES:
+    if phases != ALL_PHASES or args.seed != goldens.SEED:
         return 0
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by")

@@ -127,6 +127,19 @@ def chr21_case(seed: int, directory: str) -> dict:
     return {n: t for n, _, t in sim}
 
 
+def subset_reads(src: str, dst: str, select) -> int:
+    """Copy the records of the FASTA ``src`` that ``select`` picks (a
+    slice, or indices in file order) verbatim into ``dst``; returns the
+    number copied."""
+    with open(src) as f:
+        recs = [">" + r for r in f.read().split(">")[1:]]
+    keep = (recs[select] if isinstance(select, slice)
+            else [recs[i] for i in select])
+    with open(dst, "w") as f:
+        f.writelines(keep)
+    return len(keep)
+
+
 def uniform_bases(rng, n: int) -> np.ndarray:
     """``n`` uniform random ACGT bytes, four from each random byte."""
     acgt = np.frombuffer(b"ACGT", np.uint8)
