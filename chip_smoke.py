@@ -61,14 +61,20 @@ Phases (each prints its lines; any failure raises, so the exit is nonzero):
      reads_sub.fa) through the CLI with each layout: parity with the
      ``chr21_sub`` golden;
  11. GRCh38's coordinate space (24 chromosomes at their lengths, 3.09 Gbp,
-     uniform random bases): the csr index at k = 14, w = 3, the pairs
-     table by the automatic method (the streaming build) the same bucket
-     for bucket, and 72 reads of 10 kb, 64 of them past 2^31, aligned with
-     the csr table: >= 95% on their locus; then the pairs table sharded by
-     hash range over a mesh of 2 (two cards, or cuda:0 named twice): its
-     shards' resident bytes and peak, dsoft_sharded on the 72 reads against
-     the replicated D-SOFT (every valid hit, anchor and count), and the 72
-     reads aligned by Aligner(mesh, shard_index=True): SAM identical;
+     uniform random bases) as a 3.09 GB FASTA and 512 reads of 10 kb:
+     408 from chr14 on (past 2^31), 8 ending at chrY's last base (the end
+     of the coordinate space), 64 from chr1, 16 holding global coordinate
+     2^31 and 16 across a planted 1.5 kb deletion in chrX; the csr index at
+     k = 14, w = 3 and the pairs table by the automatic method (the
+     streaming build) the same bucket for bucket; the pairs table sharded
+     by hash range over a mesh of 2 (two cards, or cuda:0 named twice):
+     its shards' resident bytes and peak, dsoft_sharded on the 512 reads
+     against the replicated D-SOFT (every valid hit, anchor and count);
+     the CLI with --index-layout=csr (loading the FASTA, building its own
+     index): parity with the ``human`` golden, >= 95% on their locus;
+     then the reads in run()'s batches by Aligner(mesh, shard_index=True)
+     on the sharded pairs table: SAM and counter block held to the golden
+     and to the CLI's;
  12. a mesh (every card, a power of two, when there are two or more, else
      cuda:0 named twice): phase 5's case through run(mesh=) and
      run(mesh=, shard_index=True), phase 7's through run(mesh=), each with
@@ -84,7 +90,7 @@ Phases (each prints its lines; any failure raises, so the exit is nonzero):
      rebuilding a library.
 Phases 10 and 11 print each index build's passes, seconds, seeds and peak
 device memory, and fail if a build fell back to the host.
-Phases 5-7, 9, 10 and 12 print the align phase's reads/s, the extension
+Phases 5-7 and 9-12 print the align phase's reads/s, the extension
 GCUPS, the chains' hits, misses and rounds and the stage seconds of run()'s
 stats_out.  Every kernel's launch count is set to 0 just before each of
 the runs of phases 5-12 and read just after; a kernel its path never
@@ -1374,25 +1380,49 @@ def phase_chr21(seed, kstats, smi, tmp):
         _took(kstats, launches, DEFAULT_PATH)
 
 
-def phase_human(seed, kstats, smi):
-    """GRCh38's coordinate space (3.09 Gbp, 24 chromosomes): the csr index
-    at k = 14, w = 3, the pairs table by the automatic method against it,
-    and reads from the chromosomes past 2^31 aligned with the csr
-    table."""
+def phase_human(seed, kstats, smi, tmp):
+    """GRCh38's coordinate space (3.09 Gbp, 24 chromosomes) through the
+    CLI: ``utils.synth.human_case`` written into ``tmp`` (3.09 GB FASTA,
+    512 reads), the csr index at k = 14, w = 3 and the pairs table by the
+    automatic method the same bucket for bucket, the CLI with
+    --index-layout=csr and the pairs table sharded over a mesh of 2 by
+    Aligner(mesh, shard_index=True), both held to the ``human`` golden."""
     import resource
     from darwin_tpu_torch.config import Config
     from darwin_tpu_torch.genome import make_read
     from darwin_tpu_torch.index.minimizers import device_build_bytes
     from darwin_tpu_torch.index.seed_table import device_build_fits
+    from darwin_tpu_torch.io.fasta import iter_read_batches
     from darwin_tpu_torch.ops import gact_cuda
-    from darwin_tpu_torch.pipeline import align
+    from darwin_tpu_torch.pipeline import align, printer
     from darwin_tpu_torch.utils import synth
+    t_phase = t0 = time.perf_counter()
+    # human_case's two halves, so the drawn store serves the builds below
+    store, sim = synth.human_inputs(seed)
+    made_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    store, sim = synth.human_scale_case(seed + 11)
-    check(store.chromosomes[13].start >= 1 << 31, "chr14 starts below 2^31")
+    truth = synth.write_case(tmp, store, sim)
+    written_s = time.perf_counter() - t0
+    argv = ["ref.fa", "reads.fa", "0", "--index-layout=csr"]
+    t0 = time.perf_counter()
+    golden = _golden_inputs(11, "human", seed, tmp, argv)
+    hashed_s = time.perf_counter() - t0
+    start = {c.name: c.start for c in store.chromosomes}
+    check(start["chr14"] >= 1 << 31, "chr14 starts below 2^31")
+    span = synth.HUMAN_READ_LEN
+    across = sum(1 for c, s0, _ in truth.values()
+                 if start[c] + s0 < 1 << 31 <= start[c] + s0 + span - 1)
+    past = sum(1 for c, s0, _ in truth.values() if start[c] + s0 >= 1 << 31)
+    chry = store.chromosomes[-1]
+    tail = sum(1 for c, s0, _ in truth.values()
+               if c == chry.name and s0 + span == chry.length_unpadded)
     say(11, f"{len(store.chromosomes)} chromosomes, {store.size} bp "
-            f"coordinate space, {len(sim)} reads, made in "
-            f"{time.perf_counter() - t0:.1f} s")
+            f"coordinate space, {len(truth)} reads ({past} start past 2^31, "
+            f"{across} hold global coordinate 2^31, {tail} end at "
+            f"{chry.name}'s last base): drawn in {made_s:.1f} s, ref.fa "
+            f"and reads.fa written in {written_s:.1f} s, hashed in "
+            f"{hashed_s:.1f} s")
+    check(across > 0 and tail > 0, "no read across 2^31 or at the end")
     cfg = Config()
     csr = _built(11, f"csr, k={cfg.seed_size}, w={cfg.minimizer_window}",
                  store, cfg, layout="csr")
@@ -1408,35 +1438,28 @@ def phase_human(seed, kstats, smi):
           f"the automatic method took {pairs.build_stats['method']}")
     _same_buckets(pairs, csr)
     say(11, "pairs and csr tables: the same buckets, positions and order")
-    reads = [make_read(n, q) for n, q, _ in sim]
-    truth = {n: t for n, _, t in sim}
+    del csr
     mesh, what = _mesh_of(2)
-    _sharded_dsoft(cfg, pairs, reads, mesh, what)
+    _sharded_dsoft(cfg, pairs, [make_read(n, q) for n, q, _ in sim], mesh,
+                   what)
+    del sim
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    aligner = align.Aligner(cfg, store, table=csr, device="cuda")
-    init_s = time.perf_counter() - t0
-    gact_cuda.reset_launches()
-    t0 = time.perf_counter()
-    lines = aligner.align_batch(reads)
-    torch.cuda.synchronize()
-    align_s = time.perf_counter() - t0
-    launches = dict(gact_cuda.LAUNCHES)
+
+    # the CLI as a user runs it: the 3.09 GB FASTA, its own csr build
+    sam, blk, launches, _ = _run_cli(11, argv, tmp, len(truth), smi)
     rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
-    sam = "".join(lines)
+    _golden_outputs(11, "human", golden, sam, blk)
     share = _locus_share(11, sam, truth, f"a {store.size} bp coordinate "
                                          f"space")
-    far = sum(1 for n, (c, _, _) in truth.items() if c != "chr1")
-    say(11, f"aligned with the csr table: aligner set-up {init_s:.1f} s, "
-            f"align {align_s:.2f} s = {len(reads) / align_s:.1f} reads/s "
-            f"({far} reads past 2^31); kernel launches {launches}; host "
-            f"peak RSS {rss:.1f} GiB [{smi}]")
+    say(11, f"the CLI: {_large_tiles(blk)} large tiles; host peak RSS "
+            f"{rss:.1f} GiB")
     check(share >= MIN_LOCUS_SHARE,
           f"only {share:.4f} of reads on the true locus")
+    check(_large_tiles(blk) > 0, "no large tiles fired")
     _took(kstats, launches, DEFAULT_PATH)
 
-    # the same reads through the pairs table sharded over the mesh
-    del aligner, csr
+    # the same reads, in run()'s batches of 128, through the pairs table
+    # sharded over the mesh
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     aligner = align.Aligner(cfg, store, table=pairs, device="cuda",
@@ -1444,21 +1467,29 @@ def phase_human(seed, kstats, smi):
     init_s = time.perf_counter() - t0
     gact_cuda.reset_launches()
     t0 = time.perf_counter()
-    lines = aligner.align_batch(reads)
+    lines = []
+    for batch in iter_read_batches(f"{tmp}/reads.fa", 128):
+        lines += aligner.align_batch(batch)
     for d in range(torch.cuda.device_count()):
         torch.cuda.synchronize(d)
     align_s = time.perf_counter() - t0
     launches = dict(gact_cuda.LAUNCHES)
-    check("".join(lines) == sam, "Aligner(mesh, shard_index=True): SAM "
-          "differs from the csr table's on one device")
+    out = printer.sam_header(store) + "".join(lines)
+    m_blk = align.counter_block(aligner.counters)
+    label = " (Aligner(mesh of 2, shard_index=True))"
+    _golden_outputs(11, "human", golden, out, m_blk, label)
+    check(out == sam, f"{label}: SAM differs from the CLI's")
+    check(m_blk == blk, f"{label}: counters {m_blk}, the CLI's {blk}")
     m = aligner.mesh_dispatch
     say(11, f"aligned by Aligner(mesh of 2, shard_index=True) on the pairs "
-            f"table: SAM identical to the csr run's; set-up {init_s:.1f} s, "
-            f"align {align_s:.2f} s = {len(reads) / align_s:.1f} reads/s; "
-            f"kernel launches {launches}; per shard: " + _shard_launches(
+            f"table: SAM and counter block identical to the CLI's; set-up "
+            f"{init_s:.1f} s, align {align_s:.2f} s = "
+            f"{len(truth) / align_s:.1f} reads/s; kernel launches "
+            f"{launches}; per shard: " + _shard_launches(
                 {"devices": [str(d) for d in m.mesh], "lanes": m.lanes,
                  "launches": m.launches}) + f" [{smi}]")
     _took(kstats, launches, DEFAULT_PATH)
+    say(11, f"phase 11: {time.perf_counter() - t_phase:.1f} s [{smi}]")
 
 
 def _sharded_dsoft(cfg, pairs, reads, mesh, what):
@@ -1780,7 +1811,8 @@ def main(argv=None):
             with tempfile.TemporaryDirectory() as tmp:
                 phase_chr21(args.seed, kstats, smi, tmp)
     if 11 in phases:
-        phase_human(args.seed, kstats, smi)
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_human(args.seed, kstats, smi, tmp)
     if phases != ALL_PHASES or args.seed != goldens.SEED:
         return 0
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -69,6 +69,18 @@ def new_counters():
     }
 
 
+def counter_block(c) -> list[str]:
+    """The reference's 7-line counter block (software/main.cpp:713-719)
+    of the counters ``c``, as run() prints it."""
+    return [f"#reads: {c['num_reads']}",
+            f"#filter tiles: {c['num_filter_tiles']}",
+            f"#extend requests: {c['num_extend_requests']}",
+            f"#slope filtered: {c['num_slope_filtered']}",
+            f"#extend tiles: {c['num_extend_tiles']}",
+            f"#active tiles: {c['num_active_tiles']}",
+            f"#large tiles: {c['num_large_tiles']}"]
+
+
 class Aligner:
     """Thread-sharing contract: ``run(pipeline_depth=2)`` calls
     ``align_batch`` from two threads on one Aligner.  Per-batch state stays
@@ -383,13 +395,8 @@ def run(ref_path: str, reads_path: str, do_overlap: bool,
         while inflight:
             drain()
     align_s = time.time() - t0
-    print(f"#reads: {c['num_reads']}", file=err)
-    print(f"#filter tiles: {c['num_filter_tiles']}", file=err)
-    print(f"#extend requests: {c['num_extend_requests']}", file=err)
-    print(f"#slope filtered: {c['num_slope_filtered']}", file=err)
-    print(f"#extend tiles: {c['num_extend_tiles']}", file=err)
-    print(f"#active tiles: {c['num_active_tiles']}", file=err)
-    print(f"#large tiles: {c['num_large_tiles']}", file=err)
+    for line in counter_block(c):
+        print(line, file=err)
     # non-reference telemetry, prefixed so nothing mistakes it for the
     # reference's counter block (software/main.cpp:713-719) above
     h, m = c["num_spec_hits"], c["num_spec_misses"]

@@ -42,6 +42,9 @@ CASES = {
                   "argv": ["ref.fa", "reads_sub.fa", "0"],
                   "params_cfg": None, "subset": 32,
                   "inputs": ["ref.fa", "reads.fa", "reads_sub.fa"]},
+    "human": {"generator": "human_case",
+              "argv": ["ref.fa", "reads.fa", "0", "--index-layout=csr"],
+              "params_cfg": None, "inputs": ["ref.fa", "reads.fa"]},
 }
 MAX_SHOWN = 20    # differing records named on a mismatch
 

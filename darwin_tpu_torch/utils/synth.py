@@ -1,14 +1,16 @@
 """Synthetic inputs for runs on the card: random genomes, reads across a
 planted deletion, the E. coli K-12-size reference-guided case, the
 overlap case, the chr21-size repeat-genome case and the GRCh38-size
-coordinate space that ``chip_smoke.py`` and ``tools/profile_align.py``
-align, and the generic-scoring ``params.cfg``.
+case that ``chip_smoke.py`` and ``tools/profile_align.py`` align, and the
+generic-scoring ``params.cfg``.
 
 Everything comes from a numpy seed; reads are simulated with
 ``utils.simulate`` and repeat genomes made by ``utils.synthgenome``
 (numpy only)."""
 
 from __future__ import annotations
+
+import hashlib
 
 import numpy as np
 
@@ -47,18 +49,39 @@ def random_genome(rng, chroms) -> GenomeStore:
     return store.finalize()
 
 
+def reference_pieces(store: GenomeStore):
+    """The bytes of ``store``'s FASTA, one line per chromosome, in pieces
+    (``>name\n``, the bases as a view of the store, ``\n``): what
+    ``write_reference`` writes and ``reference_digest`` hashes."""
+    for c in store.chromosomes:
+        yield f">{c.name}\n".encode()
+        yield store.bases[c.start:c.start + c.length_unpadded]
+        yield b"\n"
+
+
 def write_reference(path: str, store: GenomeStore) -> None:
-    with open(path, "w") as f:
-        for c in store.chromosomes:
-            seq = store.bases[c.start:c.start + c.length_unpadded]
-            f.write(f">{c.name}\n{seq.tobytes().decode()}\n")
+    with open(path, "wb") as f:
+        for piece in reference_pieces(store):
+            f.write(piece)
 
 
-def planted_deletions(rng, store, n, left=5000, gap=1500, right=5000):
-    """Reads of the first chromosome spanning a ``gap`` bp deletion, on a
-    random strand: large-tile escalation fires on them.  Returns
-    [(name, seq, (chrom, start0, strand))] as simulate_reads does."""
-    c = store.chromosomes[0]
+def reference_digest(store: GenomeStore) -> dict:
+    """{"sha256", "bytes"} of the file ``write_reference`` would write,
+    without writing it."""
+    h, n = hashlib.sha256(), 0
+    for piece in reference_pieces(store):
+        h.update(piece)
+        n += len(piece)
+    return {"sha256": h.hexdigest(), "bytes": n}
+
+
+def planted_deletions(rng, store, n, left=5000, gap=1500, right=5000,
+                      chrom=0):
+    """Reads of chromosome ``chrom`` (an index into the store's, the first
+    by default) spanning a ``gap`` bp deletion, on a random strand:
+    large-tile escalation fires on them.  Returns [(name, seq, (chrom,
+    start0, strand))] as simulate_reads does."""
+    c = store.chromosomes[chrom]
     out = []
     for i in range(n):
         start = int(rng.integers(0, c.length_unpadded - left - gap - right))
@@ -75,6 +98,14 @@ def planted_deletions(rng, store, n, left=5000, gap=1500, right=5000):
     return out
 
 
+def write_case(directory: str, store: GenomeStore, sim) -> dict:
+    """Write ``store`` as ``ref.fa`` and the reads ``sim`` as ``reads.fa``
+    into ``directory``.  Returns {read name: (chrom, start0, strand)}."""
+    write_reference(f"{directory}/ref.fa", store)
+    write_fasta(f"{directory}/reads.fa", sim)
+    return {n: t for n, _, t in sim}
+
+
 def ecoli_case(seed: int, directory: str) -> dict:
     """Write ``ref.fa`` and ``reads.fa`` of the E. coli K-12-size case into
     ``directory``: a synthetic genome of MG1655's length, 512 simulated
@@ -86,9 +117,7 @@ def ecoli_case(seed: int, directory: str) -> dict:
     sim = simulate_reads(store, 512, 10_000, seed=seed + 3,
                          error=(0.04, 0.03, 0.03))
     sim += planted_deletions(rng, store, 16)
-    write_reference(f"{directory}/ref.fa", store)
-    write_fasta(f"{directory}/reads.fa", sim)
-    return {n: t for n, _, t in sim}
+    return write_case(directory, store, sim)
 
 
 def overlap_case(seed: int, directory: str, genome_len: int = 500_000,
@@ -122,9 +151,7 @@ def chr21_case(seed: int, directory: str) -> dict:
                          error=(0.03, 0.03, 0.04),
                          read_lens=ont_lengths(rng, 512))
     sim += planted_deletions(rng, store, 16)
-    write_reference(f"{directory}/ref.fa", store)
-    write_fasta(f"{directory}/reads.fa", sim)
-    return {n: t for n, _, t in sim}
+    return write_case(directory, store, sim)
 
 
 def subset_reads(src: str, dst: str, select) -> int:
@@ -149,28 +176,55 @@ def uniform_bases(rng, n: int) -> np.ndarray:
     return quad.view(np.uint32).ravel()[r].view(np.uint8)[:n]
 
 
-def human_scale_case(seed: int):
+HUMAN_READ_LEN = 10_000
+# human_case's reads by kind, in file order: from chr14 on (past 2^31),
+# ending at chrY's last base, from chr1, across global coordinate 2^31 in
+# chr13, and across a planted deletion in DELETION_CHROM
+HUMAN_READS = {"far": 408, "tail": 8, "chr1": 64, "straddle": 16,
+               "deletion": 16}
+DELETION_CHROM = "chrX"
+
+
+def human_inputs(seed: int):
     """GRCh38's coordinate space: its 24 chromosomes at their lengths,
-    uniform random bases, and 64 reads of 10 kb (error 0.04 / 0.03 / 0.03,
-    both strands) from chr14 on (in GRCh38 they start past 2^31) plus 8
-    from chr1.  Returns (store, [(name, seq, (chrom, start0, strand))])."""
-    read_len = 10_000
+    uniform random bases, and HUMAN_READS's 512 reads of 10 kb (error 0.04
+    / 0.03 / 0.03, random strand; the deletion reads 10 kb around a 1.5 kb
+    gap).  Returns (store, [(name, seq, (chrom, start0, strand))])."""
     rng = np.random.default_rng(seed)
     store = GenomeStore()
     for name, n in GRCH38:
         store.add_chromosome(name, uniform_bases(rng, n))
     store.finalize()
-    far = store.chromosomes[13:]
-    picks = [far[int(i)] for i in rng.integers(0, len(far), 64)]
-    picks += [store.chromosomes[0]] * 8
+    by_name = {c.name: i for i, c in enumerate(store.chromosomes)}
+    chroms = store.chromosomes
+    far = chroms[by_name["chr14"]:]
+    chr13, chry = chroms[by_name["chr13"]], chroms[by_name["chrY"]]
+    # (chromosome, start0) of each simulated read, in file order
+    spans = [(far[int(i)], None) for i in
+             rng.integers(0, len(far), HUMAN_READS["far"])]
+    spans += [(chry, chry.length_unpadded - HUMAN_READ_LEN)] \
+        * HUMAN_READS["tail"]
+    spans += [(chroms[0], None)] * HUMAN_READS["chr1"]
+    lo = (1 << 31) - chr13.start - (HUMAN_READ_LEN - 1)
+    spans += [(chr13, int(s)) for s in rng.integers(
+        lo, lo + HUMAN_READ_LEN - 1, HUMAN_READS["straddle"])]
     reads = []
-    for i, c in enumerate(picks):
-        start = int(rng.integers(0, c.length_unpadded - read_len))
+    for i, (c, start) in enumerate(spans):
+        if start is None:
+            start = int(rng.integers(0, c.length_unpadded - HUMAN_READ_LEN))
         seq = mutate_read(rng, store.bases[c.start + start:
-                                           c.start + start + read_len])
+                                           c.start + start + HUMAN_READ_LEN])
         strand = "+" if rng.random() < 0.5 else "-"
         if strand == "-":
             seq = revcomp_bytes(seq)
         reads.append((f"read{i}_{c.name}_{start}_{strand}", seq,
                       (c.name, start, strand)))
+    reads += planted_deletions(rng, store, HUMAN_READS["deletion"],
+                               chrom=by_name[DELETION_CHROM])
     return store, reads
+
+
+def human_case(seed: int, directory: str) -> dict:
+    """Write ``ref.fa`` (3.09 GB) and ``reads.fa`` of ``human_inputs``
+    into ``directory``.  Returns {read name: (chrom, start0, strand)}."""
+    return write_case(directory, *human_inputs(seed))

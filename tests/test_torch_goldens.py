@@ -17,7 +17,9 @@ them again after a change to utils/synth.py or to darwin_tpu.
 
 The tests (no card): the file's schema, and that it was made from the
 darwin_tpu source that stands here; the generators reproduce every
-input's sha256 at the goldens' seed; darwin_tpu and the port on the CPU
+input's sha256 at the goldens' seed (the ``human`` case's 3.09 GB ref.fa
+hashed from the store in memory, not written); the ``human`` case's reads
+are where its generator says; darwin_tpu and the port on the CPU
 give the same SAM and counter block on four reads of the ``ecoli`` case
 against its whole 4.64 Mbp genome, at run()'s defaults and at
 ``spec_k=1, pipeline_depth=1``; each record of both runs there equals its
@@ -296,15 +298,85 @@ def test_goldens_schema(case):
     assert entry.get("subset") == spec.get("subset")
 
 
+@pytest.fixture(scope="module")
+def human(tmp_path_factory):
+    """The ``human`` case drawn once at the goldens' seed (5.8 GiB, freed
+    on return): the inputs' digests, ref.fa's taken from the store in
+    memory as ``write_reference`` would write it (3.09 GB, never written),
+    reads.fa's from the file; {chromosome: (start, length)}; the truth."""
+    from darwin_tpu_torch.utils import synth
+    from darwin_tpu_torch.utils.simulate import write_fasta
+    store, sim = synth.human_inputs(goldens.SEED)
+    d = tmp_path_factory.mktemp("human_case")
+    write_fasta(f"{d}/reads.fa", sim)
+    digests = {**goldens.input_digests(str(d), ["reads.fa"]),
+               "ref.fa": synth.reference_digest(store)}
+    chroms = {c.name: (c.start, c.length_unpadded)
+              for c in store.chromosomes}
+    return digests, chroms, {n: t for n, _, t in sim}
+
+
 @pytest.mark.parametrize("case", list(goldens.CASES))
-def test_generators_reproduce_golden_inputs(case, written):
+def test_generators_reproduce_golden_inputs(case, written, request):
     """utils/synth.py at the goldens' seed writes the files darwin_tpu
     read: a drift in the generators (or in numpy's streams) shows here
     before the card runs against the goldens."""
     entry = _golden_file()[case]
-    d = written(case)
-    got = goldens.input_digests(d, entry["inputs"])
+    if goldens.CASES[case]["generator"] == "human_case":
+        got = request.getfixturevalue("human")[0]
+    else:
+        got = goldens.input_digests(written(case), entry["inputs"])
     assert goldens.diff_inputs(entry, got) == []
+
+
+def test_reference_digest_is_write_reference_bytes(tmp_path):
+    """``reference_digest`` hashes the bytes ``write_reference`` writes:
+    the human case's ref.fa is hashed in memory by it."""
+    from darwin_tpu_torch.utils import synth
+    rng = np.random.default_rng(3)
+    store = synth.random_genome(rng, [("a", 1000), ("bb", 129), ("c", 7)])
+    synth.write_reference(f"{tmp_path}/ref.fa", store)
+    with open(f"{tmp_path}/ref.fa", "rb") as f:
+        data = f.read()
+    assert data.startswith(b">a\n") and data.count(b"\n") == 6
+    assert synth.reference_digest(store) == goldens.sha256_file(
+        f"{tmp_path}/ref.fa")
+
+
+def test_human_reads_cross_2_31_and_end_the_space(human):
+    """The ``human`` case's reads, in file order: 408 starting past 2^31
+    (chr14 on), 8 ending at chrY's last base, 64 from chr1, 16 from chr13
+    whose span holds global coordinate 2^31, 16 across the planted
+    deletion in a chromosome past 2^31; as many as the golden's #reads."""
+    from darwin_tpu_torch.utils import synth
+    _, chroms, truth = human
+    span = synth.HUMAN_READ_LEN
+    kinds = []
+    for name, (c, s0, strand) in truth.items():
+        g = chroms[c][0] + s0
+        assert name.endswith(f"_{c}_{s0}_{strand}")
+        if name.startswith("del"):
+            kind = "deletion"
+            assert c == synth.DELETION_CHROM and g >= 1 << 31
+        elif c == "chr13":
+            kind = "straddle"
+            assert g < 1 << 31 <= g + span - 1
+        elif c == "chr1":
+            kind = "chr1"
+        elif c == "chrY" and s0 + span == chroms[c][1]:
+            kind = "tail"
+        else:
+            kind = "far"
+            assert g >= 1 << 31
+        kinds.append(kind)
+    # each kind is one run in file order, the counts HUMAN_READS's
+    runs = [k for i, k in enumerate(kinds) if i == 0 or kinds[i - 1] != k]
+    assert runs == list(synth.HUMAN_READS)
+    assert {k: kinds.count(k) for k in runs} == {
+        "far": 408, "tail": 8, "chr1": 64, "straddle": 16, "deletion": 16}
+    assert chroms["chr14"][0] >= 1 << 31 > chroms["chr13"][0]
+    blk = _golden_file()["human"]["counters"]
+    assert blk[0] == f"#reads: {len(truth)}"
 
 
 @pytest.fixture(scope="module")
