@@ -87,13 +87,23 @@ Phases (each prints its lines; any failure raises, so the exit is nonzero):
      case: each a real half of the reads, the merged SAM identical to the
      one-process run's, the summed counters equal to its counters (the
      extension rounds apart: they count per read batch), no rank
-     rebuilding a library.
-Phases 10 and 11 print each index build's passes, seconds, seeds and peak
-device memory, and fail if a build fell back to the host.
-Phases 5-7 and 9-12 print the align phase's reads/s, the extension
+     rebuilding a library;
+ 14. GRCh38 with its N gaps: phase 11's genome with 133 Mbp of N in
+     GRCh38's gap classes (telomeres, short arms, heterochromatin, 100-N
+     scaffold gaps; ``utils.synth.HUMAN_GAPS``) and 512 reads of 10 kb:
+     128 holding 1-9 kb of a block's edge, 64 beside a block, 32 across a
+     scaffold gap, 288 from N-free windows; the csr index's
+     ``goldens.index_digest``, seed count and largest bucket (the N
+     blocks' poly-A bucket) equal to darwin_tpu's table (the
+     ``human_gaps`` golden), the streaming pairs build the same bucket for
+     bucket, the CLI with --index-layout=csr held to the golden's SAM and
+     counter block, >= 95% of the far and flank reads on their locus.
+Phases 10, 11 and 14 print each index build's passes, seconds, seeds and
+peak device memory, and fail if a build fell back to the host.
+Phases 5-7, 9-12 and 14 print the align phase's reads/s, the extension
 GCUPS, the chains' hits, misses and rounds and the stage seconds of run()'s
 stats_out.  Every kernel's launch count is set to 0 just before each of
-the runs of phases 5-12 and read just after; a kernel its path never
+the runs of phases 5-12 and 14 and read just after; a kernel its path never
 launched fails.
 The line before the last is the kernels' JSON summary, preceded by the
 card's name and power limit; the last line is {"ok": true, "device":
@@ -954,13 +964,16 @@ def _run_cli(phase, argv, tmp, n_reads, smi, into=None, **run_kw):
 
 def _build_line(b):
     """One line of a SeedTable's build_stats."""
-    from darwin_tpu_torch.index.minimizers import ROWS
+    from darwin_tpu_torch.index.minimizers import ROWS, SORT_PIECE
     keys = ("count_pass_s", "scan_pass_s")
     return (f"{b['layout']} by {b['method']}"
             + "".join(f", {k} {b[k]:.3f}" for k in keys if k in b)
             + f", {b['batches']} scan batches of <= {ROWS} rows for "
             f"{b['rows']} rows, {b['sequences_per_batch']:.1f} sequences "
-            f"per batch")
+            f"per batch"
+            + (f", largest sort piece {b['largest_piece']} keys = "
+               f"{b['largest_piece'] / SORT_PIECE:.3f} x SORT_PIECE"
+               if "largest_piece" in b else ""))
 
 
 def _took(kstats, launches, names):
@@ -1492,6 +1505,117 @@ def phase_human(seed, kstats, smi, tmp):
     say(11, f"phase 11: {time.perf_counter() - t_phase:.1f} s [{smi}]")
 
 
+def phase_gaps(seed, kstats, smi, tmp):
+    """GRCh38 with its N gaps (``utils.synth.human_gaps_case``: phase 11's
+    genome with 133 Mbp of N in GRCh38's gap classes, 512 reads at the
+    blocks' edges, beside them, across scaffold gaps and from N-free
+    windows): the csr index's digest, seed count and largest bucket held
+    to darwin_tpu's table (the ``human_gaps`` golden), the streaming
+    pairs build bucket for bucket against it, and the CLI with
+    --index-layout=csr held to the golden's SAM and counter block."""
+    import resource
+    from darwin_tpu_torch.config import Config
+    from darwin_tpu_torch.index.minimizers import device_build_bytes
+    from darwin_tpu_torch.index.seed_table import device_build_fits
+    from darwin_tpu_torch.utils import goldens, synth
+    t_phase = t0 = time.perf_counter()
+    # human_gaps_case's two halves, so the drawn store serves the builds
+    store, sim = synth.human_gaps_inputs(seed)
+    made_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    truth = synth.write_case(tmp, store, sim)
+    del sim
+    written_s = time.perf_counter() - t0
+    argv = ["ref.fa", "reads.fa", "0", "--index-layout=csr"]
+    t0 = time.perf_counter()
+    golden = _golden_inputs(14, "human_gaps", seed, tmp, argv)
+    hashed_s = time.perf_counter() - t0
+    n_gap = sum(ln for _, _, ln, _ in synth.HUMAN_GAPS)
+    say(14, f"{len(store.chromosomes)} chromosomes, {store.size} bp "
+            f"coordinate space, {n_gap} bp of N in "
+            f"{len(synth.HUMAN_GAPS)} blocks, {len(truth)} reads "
+            f"({synth.HUMAN_GAPS_READS}): drawn in {made_s:.1f} s, written "
+            f"in {written_s:.1f} s, hashed in {hashed_s:.1f} s")
+    cfg = Config()
+    k, w = cfg.seed_size, cfg.minimizer_window
+    csr = _built(14, f"csr, k={k}, w={w}", store, cfg, layout="csr")
+    t0 = time.perf_counter()
+    meta = np.array([csr.kmer_size, csr.minimizer_window, csr.ref_size,
+                     csr.kmer_max_occurence], np.int64)
+    index = goldens.index_entry(
+        meta, csr.bucket_offsets.cpu().numpy(),
+        csr.positions.cpu().numpy().view(np.uint32))
+    digest_s = time.perf_counter() - t0
+    h, n = index["largest_bucket"]
+    say(14, f"csr table: index_digest {index['sha256']}, {index['seeds']} "
+            f"seeds, largest bucket {h} with {n} positions "
+            f"({n / csr.kmer_max_occurence:.0f} x the occupancy cap "
+            f"{csr.kmer_max_occurence}); digest in {digest_s:.1f} s")
+    if golden is not None:
+        check(index == golden["index"], f"the csr table {index} differs "
+              f"from darwin_tpu's {golden['index']}")
+        say(14, "csr table: digest, seed count and largest bucket equal "
+                "darwin_tpu's table (the human_gaps golden)")
+    torch.cuda.empty_cache()
+    lengths = [c.length_unpadded for c in store.chromosomes]
+    fits = device_build_fits(lengths, k, w, torch.device("cuda", 0))
+    say(14, f"all-candidates build would need "
+            f"{device_build_bytes(lengths, k, w) / 2**30:.0f} GiB: "
+            f"{'fits' if fits else 'past the gate'}")
+    pairs = _built(14, "pairs (automatic method)", store, cfg)
+    check(pairs.build_stats["method"] == "stream",
+          f"the automatic method took {pairs.build_stats['method']}")
+    _same_buckets(pairs, csr)
+    say(14, "pairs and csr tables: the same buckets, positions and order")
+    # the streaming build's sort pieces are hash ranges of equal width
+    n_pieces = pairs.build_stats["sort_pieces"]
+    shift = 2 * k - (n_pieces.bit_length() - 1)
+    bounds = torch.searchsorted(pairs.sorted_hashes, torch.arange(
+        n_pieces + 1, dtype=torch.int32, device="cuda") << shift)
+    sizes = (bounds[1:] - bounds[:-1]).tolist()
+    big = max(sizes)
+    say(14, f"streaming sort pieces: {n_pieces}, keys {min(sizes)}-{big} "
+            f"(the largest piece {sizes.index(big)}); the N bucket's piece "
+            f"{h >> shift} holds {sizes[h >> shift]} keys, {n} of them the "
+            f"N bucket's")
+    del pairs, csr, store
+    torch.cuda.empty_cache()
+
+    sam, blk, launches, _ = _run_cli(14, argv, tmp, len(truth), smi)
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    _golden_outputs(14, "human_gaps", golden, sam, blk)
+    groups = [g for g, c in synth.HUMAN_GAPS_READS.items()
+              for _ in range(c)]
+    by_group = {}
+    for name, g in zip(truth, groups):
+        by_group.setdefault(g, set()).add(name)
+    held = by_group["far"] | by_group["flank"]
+    share = _locus_share(
+        14, "".join(ln + "\n" for ln in sam.splitlines()
+                    if ln.split("\t", 1)[0] in held),
+        {n: truth[n] for n in held}, "GRCh38 with N gaps, far and flank "
+                                     "reads")
+    check(share >= MIN_LOCUS_SHARE,
+          f"only {share:.4f} of the far and flank reads on the true locus")
+    # a read holding N aligns from its first base outside it: count the
+    # reads with a record on their chromosome inside their span
+    inside = set()
+    for ln in sam.splitlines():
+        f = ln.split("\t")
+        if ln.startswith("@") or f[0] in held:
+            continue
+        c, s0, _ = truth[f[0]]
+        if f[2] == c and s0 - 200 <= int(f[3]) - 1 < s0 + synth.HUMAN_READ_LEN:
+            inside.add(f[0])
+    say(14, "reads with a record inside their span: " + ", ".join(
+        f"{g} {len(by_group[g] & inside)}/{len(by_group[g])}"
+        for g in ("edge", "scaffold")))
+    say(14, f"the CLI: {_large_tiles(blk)} large tiles; host peak RSS "
+            f"{rss:.1f} GiB")
+    _took(kstats, launches, DEFAULT_PATH)
+    say(14, f"phase 14: {time.perf_counter() - t_phase:.1f} s [{smi}]")
+
+
 def _sharded_dsoft(cfg, pairs, reads, mesh, what):
     """The pairs table sharded over ``mesh``: its shards' resident bytes
     and the peak past what was held (on one card the full shards are views
@@ -1746,7 +1870,7 @@ def phase_multihost(seed, smi, dirs, results, stats):
 
 # ---------------------------------------------------------------- main
 
-ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13}
+ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14}
 # measured on a correct run: the generic scoring's cheap gap opens change
 # CIGARs, not loci
 MIN_LOCUS_SHARE = 0.95
@@ -1813,6 +1937,9 @@ def main(argv=None):
     if 11 in phases:
         with tempfile.TemporaryDirectory() as tmp:
             phase_human(args.seed, kstats, smi, tmp)
+    if 14 in phases:
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_gaps(args.seed, kstats, smi, tmp)
     if phases != ALL_PHASES or args.seed != goldens.SEED:
         return 0
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -320,17 +320,20 @@ def sorted_pairs_device(codes, starts, lengths, k: int, w: int, stats=None):
     return _split(torch.sort(key).values[:n])
 
 
-def _sort_in_pieces(keys, k: int):
+def _sort_in_pieces(keys, k: int, stats=None):
     """Sort unique int64 keys (hash << 32 | pos) into the table's two int32
     arrays, SORT_PIECE keys at a time by hash range, so that torch.sort's
-    outputs and workspace are a piece's, not the table's."""
+    outputs and workspace are a piece's, not the table's.  A bucket is
+    never split, so one piece can hold more (``stats`` gets the number of
+    pieces as ``sort_pieces`` and the largest one's key count as
+    ``largest_piece``)."""
     n = keys.numel()
     dev = keys.device
     hashes = torch.empty(n, dtype=torch.int32, device=dev)
     positions = torch.empty(n, dtype=torch.int32, device=dev)
     bits = min(max(math.ceil(math.log2(max(n, 1) / SORT_PIECE)), 0), 2 * k)
     shift = 32 + 2 * k - bits
-    at = 0
+    at = largest = 0
     for j in range(1 << bits):
         sel = keys if bits == 0 else keys[(keys >= j << shift)
                                           & (keys < (j + 1) << shift)]
@@ -338,7 +341,10 @@ def _sort_in_pieces(keys, k: int):
         hashes[at:at + len(h)] = h
         positions[at:at + len(h)] = p
         at += len(h)
+        largest = max(largest, len(h))
         del sel, h, p
+    if stats is not None:
+        stats.update(sort_pieces=1 << bits, largest_piece=largest)
     return hashes, positions
 
 
@@ -369,7 +375,7 @@ def sorted_pairs_streaming(codes, starts, lengths, k: int, w: int, cap: int,
         stats["scan_pass_s"] = time.perf_counter() - t0
     if n > cap:
         return None, None, -n
-    sh, sp = _sort_in_pieces(acc[:n], k)
+    sh, sp = _sort_in_pieces(acc[:n], k, stats)
     del acc
     return sh, sp, n
 

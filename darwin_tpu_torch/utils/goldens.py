@@ -27,7 +27,9 @@ SEED = 0          # chip_smoke.py's default --seed
 
 # case -> the generator (a function of utils/synth.py), the CLI's argv and
 # params.cfg, the input files hashed, and the reads subset: every
-# ``subset``-th record of reads.fa, in file order, into reads_sub.fa
+# ``subset``-th record of reads.fa, in file order, into reads_sub.fa; with
+# ``index``, the entry also keeps ``index_entry`` of the csr table the run
+# built
 CASES = {
     "ecoli": {"generator": "ecoli_case", "argv": ["ref.fa", "reads.fa", "0"],
               "params_cfg": None, "inputs": ["ref.fa", "reads.fa"]},
@@ -45,8 +47,37 @@ CASES = {
     "human": {"generator": "human_case",
               "argv": ["ref.fa", "reads.fa", "0", "--index-layout=csr"],
               "params_cfg": None, "inputs": ["ref.fa", "reads.fa"]},
+    "human_gaps": {"generator": "human_gaps_case",
+                   "argv": ["ref.fa", "reads.fa", "0", "--index-layout=csr"],
+                   "params_cfg": None, "inputs": ["ref.fa", "reads.fa"],
+                   "index": True},
 }
 MAX_SHOWN = 20    # differing records named on a mismatch
+
+
+def index_digest(meta, offsets, positions) -> str:
+    """sha256 of a csr table as darwin_tpu's .npz holds it: ``meta`` (k,
+    w, ref_size, kmer_max_occurence) int64, the bucket ``offsets`` int32
+    and ``positions`` uint32, each little-endian in C order, in that
+    order."""
+    h = hashlib.sha256()
+    for a, dt in ((meta, "<i8"), (offsets, "<i4"), (positions, "<u4")):
+        # a no-op for arrays already of that type; int32 bit patterns of
+        # positions wrap to their uint32 values
+        a = np.ascontiguousarray(np.asarray(a).astype(dt, copy=False))
+        for i in range(0, a.size, 1 << 26):
+            h.update(a[i:i + (1 << 26)])
+    return h.hexdigest()
+
+
+def index_entry(meta, offsets, positions) -> dict:
+    """A goldens entry's ``index``: the digest, the seed count and the
+    largest bucket as [hash, count] (the lowest hash of the largest)."""
+    sizes = np.diff(np.asarray(offsets, np.int64))
+    h = int(np.argmax(sizes))
+    return {"sha256": index_digest(meta, offsets, positions),
+            "seeds": int(np.asarray(positions).size),
+            "largest_bucket": [h, int(sizes[h])]}
 
 
 def load(path: str = PATH) -> dict:

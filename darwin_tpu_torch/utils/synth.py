@@ -1,8 +1,8 @@
 """Synthetic inputs for runs on the card: random genomes, reads across a
 planted deletion, the E. coli K-12-size reference-guided case, the
 overlap case, the chr21-size repeat-genome case and the GRCh38-size
-case that ``chip_smoke.py`` and ``tools/profile_align.py`` align, and the
-generic-scoring ``params.cfg``.
+cases, without and with N gaps, that ``chip_smoke.py`` and
+``tools/profile_align.py`` align, and the generic-scoring ``params.cfg``.
 
 Everything comes from a numpy seed; reads are simulated with
 ``utils.simulate`` and repeat genomes made by ``utils.synthgenome``
@@ -228,3 +228,152 @@ def human_case(seed: int, directory: str) -> dict:
     """Write ``ref.fa`` (3.09 GB) and ``reads.fa`` of ``human_inputs``
     into ``directory``.  Returns {read name: (chrom, start0, strand)}."""
     return write_case(directory, *human_inputs(seed))
+
+
+
+# GRCh38's gap classes (the UCSC hg38 ``gap`` table's telomere, short_arm,
+# heterochromatin and scaffold) in a layout of this module's own, not
+# GRCh38's coordinates: 10 kb of telomere at both ends of every
+# chromosome, the short arms of the acrocentric chromosomes (their first
+# Mbp, the telomere included), three blocks of heterochromatin (chr1's
+# holds chr1 position 2^27, a batch boundary of the index scan; chrY's
+# lies past 2^31) and a 100-N scaffold gap every 10 Mbp outside them
+TELOMERE_LEN = 10_000
+SHORT_ARMS = {"chr13": 16_000_000, "chr14": 16_000_000,
+              "chr15": 17_000_000, "chr21": 5_000_000, "chr22": 10_500_000}
+HETEROCHROMATIN = [("chr1", 125_200_000, 18_000_000),
+                   ("chr9", 41_000_000, 20_000_000),
+                   ("chrY", 26_700_000, 30_000_000)]
+SCAFFOLD_EVERY, SCAFFOLD_LEN = 10_000_000, 100
+
+
+def gap_layout(chroms, short_arms, heterochromatin, scaffold_every):
+    """N blocks over ``chroms`` = [(name, length)]: a telomere at both
+    ends of each, ``short_arms`` {name: end} (the first telomere
+    included), ``heterochromatin`` [(name, start0, length)] and a
+    SCAFFOLD_LEN run every ``scaffold_every`` bp outside those.  Returns
+    ((chrom, start0, length, class), ...) sorted by chromosome (in
+    ``chroms``' order) and start, disjoint."""
+    out = []
+    for name, n in chroms:
+        big = [(0, TELOMERE_LEN, "telomere"),
+               (n - TELOMERE_LEN, TELOMERE_LEN, "telomere")]
+        if name in short_arms:
+            big.append((TELOMERE_LEN, short_arms[name] - TELOMERE_LEN,
+                        "short_arm"))
+        big += [(s, ln, "heterochromatin") for c, s, ln in heterochromatin
+                if c == name]
+        scaffold = [(p, SCAFFOLD_LEN, "scaffold")
+                    for p in range(scaffold_every, n, scaffold_every)
+                    if all(p + SCAFFOLD_LEN <= s or p >= s + ln
+                           for s, ln, _ in big)]
+        out += [(name, s, ln, cls) for s, ln, cls in sorted(big + scaffold)]
+    return tuple(out)
+
+
+# 132,958,700 bp of N in 343 blocks
+HUMAN_GAPS = gap_layout(GRCH38, SHORT_ARMS, HETEROCHROMATIN, SCAFFOLD_EVERY)
+# human_gaps_case's reads by group, in file order: holding 1-9 kb of a
+# block of >= 10 kb at its left or right edge (half each), ending at the
+# base before a block or starting at the base after one (half each),
+# holding a scaffold gap 2-8 kb in, and from the N-free windows
+HUMAN_GAPS_READS = {"edge": 128, "flank": 64, "scaffold": 32, "far": 288}
+
+
+def _gap_runs(layout):
+    """``layout``'s blocks with adjacent ones merged: [(chrom, start0,
+    end0)], the genome's N runs."""
+    runs = []
+    for c, s, ln, _ in layout:
+        if runs and runs[-1][0] == c and runs[-1][2] == s:
+            runs[-1] = (c, runs[-1][1], s + ln)
+        else:
+            runs.append((c, s, s + ln))
+    return runs
+
+
+def gapped_genome(rng, chroms, layout) -> GenomeStore:
+    """Uniform random bases over ``chroms`` = [(name, length)] (drawn as
+    ``human_inputs`` draws them), N written over ``layout``'s blocks."""
+    by_chrom = {}
+    for c, s, ln, _ in layout:
+        by_chrom.setdefault(c, []).append((s, ln))
+    store = GenomeStore()
+    for name, n in chroms:
+        bases = uniform_bases(rng, n)
+        for s, ln in by_chrom.get(name, []):
+            bases[s:s + ln] = ord("N")
+        store.add_chromosome(name, bases)
+    return store.finalize()
+
+
+def gapped_reads(rng, store, layout, groups):
+    """Reads of HUMAN_READ_LEN over a genome with N at ``layout``, in the
+    groups of ``groups`` (HUMAN_GAPS_READS's four, with their counts), in
+    file order; error 0.04 / 0.03 / 0.03, random strand, a read's bases
+    inside N uniform random bases (what a sequencer reads behind a gap).
+    Returns [(name, seq, (chrom, start0, strand))]."""
+    chrom_len = {c.name: c.length_unpadded for c in store.chromosomes}
+    runs = _gap_runs(layout)
+    span = HUMAN_READ_LEN
+    big = [r for r in runs if r[2] - r[1] >= 10_000]
+    lefts = [(c, s) for c, s, _ in big if s > 0]
+    rights = [(c, e) for c, _, e in big if e < chrom_len[c]]
+    half = groups["edge"] // 2
+    # (chromosome, start0) of each read, in file order
+    spans = [(c, s - span + int(o)) for (c, s), o in zip(
+        (lefts[j % len(lefts)] for j in range(half)),
+        rng.integers(1000, 9001, half))]
+    spans += [(c, e - int(o)) for (c, e), o in zip(
+        (rights[j % len(rights)] for j in range(half)),
+        rng.integers(1000, 9001, half))]
+    half = groups["flank"] // 2
+    flank_l = [(c, s - span) for c, s, _ in runs if s >= span]
+    flank_r = [(c, e) for c, _, e in runs if e + span <= chrom_len[c]]
+    spans += [flank_l[int(i)] for i in rng.integers(0, len(flank_l), half)]
+    spans += [flank_r[int(i)] for i in rng.integers(0, len(flank_r), half)]
+    scaffold = [(c, s) for c, s, _, cls in layout if cls == "scaffold"]
+    n = groups["scaffold"]
+    spans += [(scaffold[int(i)][0], scaffold[int(i)][1] - int(d))
+              for i, d in zip(rng.integers(0, len(scaffold), n),
+                              rng.integers(2000, 8001, n))]
+    # every N-free window: each chromosome begins and ends in a telomere,
+    # so they lie between two runs of one chromosome; (chrom, first start,
+    # count of starts)
+    free = [(c, e, s2 - e - span + 1) for (c, _, e), (c2, s2, _)
+            in zip(runs, runs[1:]) if c == c2 and s2 - e >= span]
+    count = np.array([f[2] for f in free], np.int64)
+    cum = np.cumsum(count)
+    u = rng.integers(0, int(cum[-1]), groups["far"])
+    idx = np.searchsorted(cum, u, side="right")
+    spans += [(free[i][0], free[i][1] + int(x - cum[i] + count[i]))
+              for i, x in zip(idx, u)]
+    chroms = {c.name: c for c in store.chromosomes}
+    reads = []
+    for i, (name, start) in enumerate(spans):
+        c = chroms[name]
+        seq = store.bases[c.start + start:c.start + start + span].copy()
+        gap = seq == ord("N")
+        seq[gap] = uniform_bases(rng, int(gap.sum()))
+        seq = mutate_read(rng, seq)
+        strand = "+" if rng.random() < 0.5 else "-"
+        if strand == "-":
+            seq = revcomp_bytes(seq)
+        reads.append((f"read{i}_{name}_{start}_{strand}", seq,
+                      (name, start, strand)))
+    return reads
+
+
+def human_gaps_inputs(seed: int):
+    """``human_inputs``' genome (the same bases) with N written over
+    HUMAN_GAPS, and ``gapped_reads``' 512 reads in HUMAN_GAPS_READS's
+    groups.  Returns (store, [(name, seq, (chrom, start0, strand))])."""
+    rng = np.random.default_rng(seed)
+    store = gapped_genome(rng, GRCH38, HUMAN_GAPS)
+    return store, gapped_reads(rng, store, HUMAN_GAPS, HUMAN_GAPS_READS)
+
+
+def human_gaps_case(seed: int, directory: str) -> dict:
+    """Write ``ref.fa`` (3.09 GB) and ``reads.fa`` of ``human_gaps_inputs``
+    into ``directory``.  Returns {read name: (chrom, start0, strand)}."""
+    return write_case(directory, *human_gaps_inputs(seed))

@@ -12,18 +12,20 @@ in that directory with the argv and params.cfg of chip_smoke.py's CLI run
 of the case, and writes the case's entry of
 ``darwin_tpu_torch/goldens/real_size.json``: the inputs' sha256, stdout's
 sha256 and a digest per record, the counter block, darwin_tpu's backend
-and source tree, and the seconds the run took on the maker's CPU.  Make
-them again after a change to utils/synth.py or to darwin_tpu.
+and source tree, and the seconds the run took on the maker's CPU; for a
+case with ``index`` (``human_gaps``) also the digest, seed count and
+largest bucket of the csr table darwin_tpu's run built.  Make them again
+after a change to utils/synth.py or to darwin_tpu.
 
 The tests (no card): the file's schema, and that it was made from the
 darwin_tpu source that stands here; the generators reproduce every
-input's sha256 at the goldens' seed (the ``human`` case's 3.09 GB ref.fa
-hashed from the store in memory, not written); the ``human`` case's reads
-are where its generator says; darwin_tpu and the port on the CPU
-give the same SAM and counter block on four reads of the ``ecoli`` case
-against its whole 4.64 Mbp genome, at run()'s defaults and at
-``spec_k=1, pipeline_depth=1``; each record of both runs there equals its
-digest in the ``ecoli`` golden."""
+input's sha256 at the goldens' seed (the ``human`` and ``human_gaps``
+cases' 3.09 GB ref.fa hashed from the store in memory, not written); the
+``human`` and ``human_gaps`` cases' reads are where their generator says;
+darwin_tpu and the port on the CPU give the same SAM and counter block on
+four reads of the ``ecoli`` case against its whole 4.64 Mbp genome, at
+run()'s defaults and at ``spec_k=1, pipeline_depth=1``; each record of
+both runs there equals its digest in the ``ecoli`` golden."""
 
 from __future__ import annotations
 
@@ -95,6 +97,16 @@ def make_entry(case: str, directory: str) -> dict:
     spec = goldens.CASES[case]
     _write_inputs(case, goldens.SEED, directory)
     inputs = goldens.input_digests(directory, spec["inputs"])
+    tables = []
+    if spec.get("index"):
+        # the table darwin_tpu's own run builds, kept for its digest
+        from darwin_tpu.pipeline import align as jalign
+        build = jalign.build_seed_table
+
+        def kept(*a, **kw):
+            tables.append(build(*a, **kw))
+            return tables[-1]
+        jalign.build_seed_table = kept
     out, err = io.StringIO(), io.StringIO()
     cwd = os.getcwd()
     os.chdir(directory)
@@ -129,6 +141,12 @@ def make_entry(case: str, directory: str) -> dict:
         "reduced": None,
         "seconds": round(seconds, 1),
     }
+    if spec.get("index"):
+        (tb,) = tables
+        entry["index"] = goldens.index_entry(
+            np.array([tb.kmer_size, tb.minimizer_window, tb.ref_size,
+                      tb.kmer_max_occurence], np.int64),
+            np.asarray(tb.bucket_offsets), np.asarray(tb.positions))
     if "subset" in spec:
         with open(f"{directory}/reads_sub.fa") as f:
             n = f.read().count(">")
@@ -296,6 +314,14 @@ def test_goldens_schema(case):
         os.path.join(ROOT, "darwin_tpu"))
     assert (entry["reduced"] is not None) == ("subset" in spec)
     assert entry.get("subset") == spec.get("subset")
+    # the csr table darwin_tpu's run built: digest, seeds, largest bucket
+    assert ("index" in entry) == bool(spec.get("index"))
+    if spec.get("index"):
+        ix = entry["index"]
+        assert sorted(ix) == ["largest_bucket", "seeds", "sha256"]
+        assert re.fullmatch(r"[0-9a-f]{64}", ix["sha256"])
+        h, n = ix["largest_bucket"]
+        assert 0 <= h < 4 ** 14 and 0 < n < ix["seeds"]
 
 
 @pytest.fixture(scope="module")
@@ -316,14 +342,42 @@ def human(tmp_path_factory):
     return digests, chroms, {n: t for n, _, t in sim}
 
 
+@pytest.fixture(scope="module")
+def human_gaps(tmp_path_factory):
+    """The ``human_gaps`` case drawn once at the goldens' seed, as the
+    ``human`` fixture draws its case: the inputs' digests (ref.fa from the
+    store in memory, never written), {chromosome: (start, length)}, the
+    truth, and for each read in file order its span's N: (count, offset
+    of the first, first base N, last base N, the base before the span N,
+    the base after it N)."""
+    from darwin_tpu_torch.utils import synth
+    from darwin_tpu_torch.utils.simulate import write_fasta
+    store, sim = synth.human_gaps_inputs(goldens.SEED)
+    d = tmp_path_factory.mktemp("human_gaps_case")
+    write_fasta(f"{d}/reads.fa", sim)
+    digests = {**goldens.input_digests(str(d), ["reads.fa"]),
+               "ref.fa": synth.reference_digest(store)}
+    chroms = {c.name: (c.start, c.length_unpadded)
+              for c in store.chromosomes}
+    is_n = []
+    for _, _, (c, s0, _) in sim:
+        g = chroms[c][0] + s0
+        x = store.bases[g - 1:g + synth.HUMAN_READ_LEN + 1] == ord("N")
+        is_n.append((int(x[1:-1].sum()), int(np.argmax(x[1:-1])),
+                     bool(x[1]), bool(x[-2]), bool(x[0]), bool(x[-1])))
+    return digests, chroms, {n: t for n, _, t in sim}, is_n
+
+
 @pytest.mark.parametrize("case", list(goldens.CASES))
 def test_generators_reproduce_golden_inputs(case, written, request):
     """utils/synth.py at the goldens' seed writes the files darwin_tpu
     read: a drift in the generators (or in numpy's streams) shows here
     before the card runs against the goldens."""
     entry = _golden_file()[case]
-    if goldens.CASES[case]["generator"] == "human_case":
-        got = request.getfixturevalue("human")[0]
+    drawn = {"human_case": "human", "human_gaps_case": "human_gaps"}
+    gen = goldens.CASES[case]["generator"]
+    if gen in drawn:
+        got = request.getfixturevalue(drawn[gen])[0]
     else:
         got = goldens.input_digests(written(case), entry["inputs"])
     assert goldens.diff_inputs(entry, got) == []
@@ -376,6 +430,41 @@ def test_human_reads_cross_2_31_and_end_the_space(human):
         "far": 408, "tail": 8, "chr1": 64, "straddle": 16, "deletion": 16}
     assert chroms["chr14"][0] >= 1 << 31 > chroms["chr13"][0]
     blk = _golden_file()["human"]["counters"]
+    assert blk[0] == f"#reads: {len(truth)}"
+
+
+def test_human_gaps_reads_sit_at_the_gaps(human_gaps):
+    """The ``human_gaps`` reads, in file order: 64 holding 1-9 kb of a
+    block's left edge (N ending the span) and 64 of a right edge (N
+    starting it), 32 ending at the base before a block and 32 starting at
+    the base after one, 32 holding one 100-N scaffold gap 2-8 kb in, 288
+    holding no N; as many as the golden's #reads."""
+    from darwin_tpu_torch.utils import synth
+    _, chroms, truth, is_n = human_gaps
+    groups = [g for g, n in synth.HUMAN_GAPS_READS.items()
+              for _ in range(n)]
+    assert len(groups) == len(truth) == len(is_n) == 512
+    edge, flank = (synth.HUMAN_GAPS_READS[g] for g in ("edge", "flank"))
+    for i, ((name, (c, s0, strand)), g, (n, at, first, last, before,
+                                          after)) in enumerate(
+            zip(truth.items(), groups, is_n)):
+        assert name == f"read{i}_{c}_{s0}_{strand}"
+        assert 0 <= s0 and s0 + synth.HUMAN_READ_LEN <= chroms[c][1]
+        if g == "edge":
+            assert 1000 <= n <= 9000, name
+            left = i < edge // 2
+            assert (first, last) == (not left, left), name
+        elif g == "flank":
+            left = i < edge + flank // 2
+            assert n == 0 and (after, before) == (left, not left), name
+        elif g == "scaffold":
+            assert n == synth.SCAFFOLD_LEN and 2000 <= at <= 8000, name
+        else:
+            assert n == 0, name
+    # the edge reads are spread over the blocks of >= 10 kb
+    assert len({c for (c, _, _), g in zip(truth.values(), groups)
+                if g == "edge"}) == len(synth.GRCH38)
+    blk = _golden_file()["human_gaps"]["counters"]
     assert blk[0] == f"#reads: {len(truth)}"
 
 
