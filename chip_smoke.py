@@ -101,10 +101,10 @@ Phases (each prints its lines; any failure raises, so the exit is nonzero):
 Phases 10, 11 and 14 print each index build's passes, seconds, seeds and
 peak device memory, and fail if a build fell back to the host.
 Phases 5-7, 9-12 and 14 print the align phase's reads/s, the extension
-GCUPS, the chains' hits, misses and rounds and the stage seconds of run()'s
-stats_out.  Every kernel's launch count is set to 0 just before each of
-the runs of phases 5-12 and 14 and read just after; a kernel its path never
-launched fails.
+dispatches' tiles and cells, the chains' hits, misses and rounds and the
+stage seconds of run()'s stats_out.  Every kernel's launch count is set to
+0 just before each of the runs of phases 5-12 and 14 and read just after;
+a kernel its path never launched fails.
 The line before the last is the kernels' JSON summary, preceded by the
 card's name and power limit; the last line is {"ok": true, "device":
 {...}}.  Needs one CUDA device; exits nonzero without one.
@@ -933,8 +933,6 @@ def _run_cli(phase, argv, tmp, n_reads, smi, into=None, **run_kw):
                   err_text)
     index_s = int(m.group(1)) / 1000
     align_s = stats["align_seconds"]
-    gcups = (ext["cells"] / ext["device_ms"] / 1e6 if ext["device_ms"]
-             else float("nan"))
     hits, misses, rounds = chains
     path = ", ".join(f"{k}={v}" for k, v in run_kw.items()) or \
         "defaults (spec_k=12, pipeline_depth=2)"
@@ -949,9 +947,7 @@ def _run_cli(phase, argv, tmp, n_reads, smi, into=None, **run_kw):
                f"extension rounds")
     say(phase, f"extension dispatches: {ext['dispatches']}, "
                f"{ext['tiles']} tiles computed ({ext['spec_tiles']} "
-               f"speculative), {ext['cells']} cells in "
-               f"{ext['device_ms']:.1f} ms device time = {gcups:.2f} GCUPS "
-               f"[{smi}]")
+               f"speculative), {ext['cells']} cells")
     say(phase, "stage seconds (stats_out, all batches): " + ", ".join(
         f"{k}={v:.3f}" for k, v in sorted(stats["stage_seconds"].items(),
                                           key=lambda kv: -kv[1])))
@@ -1721,9 +1717,8 @@ def _run_api(phase, ref, reads, overlap, n_reads, smi, **run_kw):
     launches = dict(gact_cuda.LAUNCHES)
     ext = dict(dispatch.EXT_STATS)
     say(phase, f"kernel launches in this run: {launches}; extension "
-               f"dispatches {ext['dispatches']}, {ext['tiles']} tiles, "
-               f"{ext['device_ms']:.1f} ms of device time (each mesh "
-               f"dispatch its longest shard's) [{smi}]")
+               f"dispatches {ext['dispatches']}, {ext['tiles']} tiles "
+               f"[{smi}]")
     say(phase, "stage seconds: " + ", ".join(
         f"{k}={v:.3f}" for k, v in sorted(stats["stage_seconds"].items(),
                                           key=lambda kv: -kv[1])[:8]))

@@ -42,36 +42,28 @@ SPEC_K = 12
 # extension-dispatch telemetry for this process: dispatches, tiles and DP
 # cells (tiles x ref x query) computed — a speculative dispatch counts all
 # B x K tiles of its chain, accepted or not, and its levels 2..K again as
-# ``spec_tiles`` — and, on CUDA, device milliseconds between two events
-# recorded on the dispatch's stream around its DP + traceback (+ next-tile)
-# launches, the whole chain for a speculative one (read back in resolve(),
-# which synchronises anyway).  A mesh dispatch (parallel/shard.py) counts
-# once, its shards' tiles and cells summed and its device ms the longest
-# shard's interval.  Two batches in flight update it from two threads,
-# under _stats_lock.  reset_ext_stats() zeroes it.
-EXT_STATS = {"dispatches": 0, "tiles": 0, "spec_tiles": 0, "cells": 0,
-             "device_ms": 0.0}
+# ``spec_tiles``.  A mesh dispatch (parallel/shard.py) counts once, its
+# shards' tiles and cells summed.  Two batches in flight update it from
+# two threads, under _stats_lock.  reset_ext_stats() zeroes it.  Device
+# time is the profiler's, per kernel.
+EXT_STATS = {"dispatches": 0, "tiles": 0, "spec_tiles": 0, "cells": 0}
 _stats_lock = threading.Lock()
 
 
 def reset_ext_stats():
     with _stats_lock:
-        EXT_STATS.update(dispatches=0, tiles=0, spec_tiles=0, cells=0,
-                         device_ms=0.0)
+        EXT_STATS.update(dispatches=0, tiles=0, spec_tiles=0, cells=0)
 
 
 def count_dispatch(works):
     """Count one dispatch made of the shards' ``works``, each (tiles,
-    spec_tiles, cells, events) as the enqueue functions below return it;
-    call after every shard's resolve()."""
-    ms = max(ev[0].elapsed_time(ev[1]) if ev else 0.0
-             for *_, ev in works)
+    spec_tiles, cells) as the enqueue functions below return it; call
+    after every shard's resolve()."""
     with _stats_lock:
         EXT_STATS["dispatches"] += 1
         EXT_STATS["tiles"] += sum(w[0] for w in works)
         EXT_STATS["spec_tiles"] += sum(w[1] for w in works)
         EXT_STATS["cells"] += sum(w[2] for w in works)
-        EXT_STATS["device_ms"] += ms
 
 
 def _counted(resolve, work):
@@ -128,16 +120,11 @@ def enqueue_extend(ref_codes, query_codes, r_start, r_size, q_start,
     dev = ref_codes.device
     req = _upload(dev, r_start, r_size, q_start, q_size, rev)
     B = req.shape[1]
-    events = _events(dev)
     qtile, rtile = gather_tiles(ref_codes, query_codes, req[0], req[1],
                                 req[2], req[3], req[4] != 0, qt, rt)
     se = torch.ones(B, dtype=torch.bool, device=dev)
-    if events:
-        events[0].record(torch.cuda.current_stream(dev))
     rec, stats = _extend_tile(qtile, rtile, tile_sizes(req[3], req[1]), se,
                               params, max_tb)
-    if events:
-        events[1].record(torch.cuda.current_stream(dev))
     packed = torch.cat([rec, torch.stack(stats)])
     L = min(qt + rt, 2 * max_tb)
 
@@ -146,15 +133,7 @@ def enqueue_extend(ref_codes, query_codes, r_start, r_size, q_start,
         R = p.shape[0] - 5
         ops, n_ops = gact.expand_records(p[:R], B, L)
         return {"ops": ops, "n_ops": n_ops, **_stats_dict(p[R:])}
-    return resolve, (B, 0, B * qt * rt, events)
-
-
-def _events(dev):
-    """The event pair of a dispatch's device interval (CUDA only)."""
-    if dev.type != "cuda":
-        return None
-    return (torch.cuda.Event(enable_timing=True),
-            torch.cuda.Event(enable_timing=True))
+    return resolve, (B, 0, B * qt * rt)
 
 
 def _extend_tile(qtile, rtile, sizes, se, params, max_tb):
@@ -248,12 +227,9 @@ def enqueue_spec(ref_codes, query_codes, r_start, r_size, q_start, q_size,
     lane = req[4:9]
     curr = req[9:11]
     se = torch.ones(B, dtype=torch.bool, device=dev)
-    events = _events(dev)
     # level 1's tiles; each later level's come from gact_next
     qtile, rtile = gather_tiles(ref_codes, query_codes, req[0], req[1],
                                 req[2], req[3], rev_d, qt, rt)
-    if events:
-        events[0].record(torch.cuda.current_stream(dev))
     sizes = tile_sizes(req[3], req[1])
     recs, spec = [], []
     for j in range(K):
@@ -267,8 +243,6 @@ def enqueue_spec(ref_codes, query_codes, r_start, r_size, q_start, q_size,
                 qt + rt)
             curr = nxt[4:6]
             spec.append(nxt[:4])
-    if events:
-        events[1].record(torch.cuda.current_stream(dev))
     # one int32 matrix: the records, the stats, then the int64 requests'
     # bytes as int32 pairs
     parts = recs + [stats1]
@@ -287,4 +261,4 @@ def enqueue_spec(ref_codes, query_codes, r_start, r_size, q_start, q_size,
                 **_stats_dict(p[K * R:K * R + 5]),
                 "spec_req": spec_req,
                 "ops_spec": SpecLevels(p[R:K * R].reshape(K - 1, R, B), L)}
-    return resolve, (B * K, B * (K - 1), B * K * qt * rt, events)
+    return resolve, (B * K, B * (K - 1), B * K * qt * rt)

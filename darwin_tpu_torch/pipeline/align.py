@@ -23,6 +23,7 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import contextlib
+import itertools
 import os
 import sys
 import threading
@@ -45,6 +46,7 @@ from darwin_tpu_torch.parallel.shard import Mesh, MeshDispatcher, make_mesh
 from darwin_tpu_torch.pipeline import printer
 from darwin_tpu_torch.pipeline.extend import ExtensionManager
 from darwin_tpu_torch.seeding.seeder import Seeder
+from darwin_tpu_torch.utils import stages
 from darwin_tpu_torch.utils.device import resolve_device
 from darwin_tpu_torch.utils.stages import mark
 from darwin_tpu_torch.utils.turns import HostTurns, fetch
@@ -90,7 +92,8 @@ class Aligner:
 
     ``stage_seconds``: host seconds per stage over all batches
     (``read_upload``, ``seed``, ``filter``, ``extend``, ``print`` and the
-    sub-stages of the seeder and the extension manager nested in them);
+    sub-stages nested in them: the seeder's, the filter's ``filter_build``,
+    ``filter_fetch`` and ``filter_collect``, the extension manager's);
     ``stage_seconds_cold``: the first batch's alone."""
 
     def __init__(self, cfg: Config, store: GenomeStore,
@@ -132,15 +135,17 @@ class Aligner:
             self.ref_codes = self.mesh_dispatch.replicate(self.ref_codes)
 
     def _filter_dispatch(self, reads, anchors_per_read, strand, counters,
-                         mgr):
+                         mgr, tacc):
         """Enqueue one strand's first tiles (software/filter.cpp:8-228);
         both strands dispatch before either is fetched."""
         cfg = self.cfg
+        t0 = time.perf_counter()
         batch = flt.build_first_tiles(reads, anchors_per_read, self.store,
                                       cfg)
         n = len(batch.meta)
         counters["num_filter_tiles"] += n
         if n == 0:
+            mark(tacc, "filter_build", t0)
             return batch, 0, None
         q_start = batch.q_start + np.array(
             [mgr.q_code_start[(m[0], strand)] for m in batch.meta], np.int64)
@@ -148,20 +153,25 @@ class Aligner:
         res = (self.mesh_dispatch or dispatch).first_tile_scores(
             self.ref_codes, mgr.q_codes_dev, batch.r_start, batch.r_size,
             q_start, batch.q_size, self.params, qt=T, rt=T)
+        mark(tacc, "filter_build", t0)
         return batch, n, res
 
-    def _filter_collect(self, dispatched, counters):
+    def _filter_collect(self, dispatched, counters, tacc):
         """Fetch + threshold + slope filter for one strand's tiles."""
         cfg = self.cfg
         batch, n, res = dispatched
         if n == 0:
             return []
+        t0 = time.perf_counter()
         scores, qmax, rmax = fetch(res["packed"])
+        t0 = mark(tacc, "filter_fetch", t0)
         counters["num_extend_requests"] += int(
             (scores >= cfg.first_tile_score_threshold).sum())
         locs = flt.collect_locations(batch, scores, rmax, qmax, self.store,
                                      cfg)
-        return flt.slope_filter(locs, cfg, counters)
+        out = flt.slope_filter(locs, cfg, counters)
+        mark(tacc, "filter_collect", t0)
+        return out
 
     def align_batch(self, reads: List[Read], counters=None) -> List[str]:
         """Seed, filter, extend and print one batch of reads.  counters:
@@ -186,11 +196,11 @@ class Aligner:
         counters["num_capped_buckets"] += seeded.n_capped_buckets
         t0 = mark(tacc, "seed", t0)
         fw_d = self._filter_dispatch(reads, seeded.fw_anchors, "+",
-                                     counters, mgr)
+                                     counters, mgr, tacc)
         rc_d = self._filter_dispatch(reads, seeded.rc_anchors, "-",
-                                     counters, mgr)
-        fw_locs = self._filter_collect(fw_d, counters)
-        rc_locs = self._filter_collect(rc_d, counters)
+                                     counters, mgr, tacc)
+        fw_locs = self._filter_collect(fw_d, counters, tacc)
+        rc_locs = self._filter_collect(rc_d, counters, tacc)
         t0 = mark(tacc, "filter", t0)
 
         # per read, per strand (fw then rc), slope-filter order kept — the
@@ -241,20 +251,26 @@ def _load_index(index_cache, store, cfg, dev, err, index_layout):
     return table
 
 
-def _in_flight(devices):
+def _in_flight(devices, spans):
     """The worker threads' call of align_batch: the batches take turns on
     the host (utils.turns), and on CUDA each worker thread launches on a
     stream of its own on each of ``devices`` (the aligner's and its
     mesh's), made to wait once on the stream that uploaded the genome, its
     replicas and the index there, so that one batch's fetch does not wait
-    for the other batch's kernels.  The first device is left current."""
+    for the other batch's kernels.  The first device is left current.
+    ``call(seq, fn, *a)``: with ``spans`` (a utils.stages.Spans) the
+    worker records batch ``seq``'s spans, its first wait for the turn
+    (``wait_turn``) included."""
     turns = HostTurns()
     cards = [d for d in dict.fromkeys(devices) if d.type == "cuda"]
     main = {d: torch.cuda.current_stream(d) for d in cards}
     local = threading.local()
 
-    def call(fn, *a):
-        with turns.turn(), contextlib.ExitStack() as stack:
+    def call(seq, fn, *a):
+        with stages.bound(spans, seq), contextlib.ExitStack() as stack:
+            t0 = time.perf_counter()
+            stack.enter_context(turns.turn())
+            mark(None, "wait_turn", t0)
             streams = getattr(local, "streams", None)
             if streams is None:
                 streams = local.streams = [torch.cuda.Stream(d)
@@ -317,7 +333,12 @@ def run(ref_path: str, reads_path: str, do_overlap: bool,
     ``compile_s`` (seconds this process spent building the native and the
     CUDA libraries), and on a mesh ``mesh``: its devices, and per shard
     the kernel launches and lanes of its dispatches, and the copies that
-    crossed between two devices.
+    crossed between two devices.  Under torch.profiler (on the calling
+    thread, when run() starts) stats_out also gets ``spans``
+    (utils.stages.Spans.table(): every stage, sub-stage and wait of every
+    batch, run()'s own ``run_parse`` / ``run_wait`` / ``run_write`` and
+    the collector's ``gc``, with two ``darwin.clock`` anchors that map
+    them onto the trace's clock).
 
     mesh: None / 'auto', 'off', N or a parallel.shard.Mesh
     (``_resolve_mesh``): every tile batch split over the mesh's devices;
@@ -329,6 +350,9 @@ def run(ref_path: str, reads_path: str, do_overlap: bool,
     if index_layout not in (None, "pairs", "csr"):
         raise ValueError(f"unknown index layout {index_layout!r}")
     dev = resolve_device(device)
+    # spans only for a run under torch.profiler that reports its stats
+    spans = (stages.Spans() if stats_out is not None
+             and torch._C._autograd._profiler_enabled() else None)
     out = out or sys.stdout
     err = err or sys.stderr
     cfg = cfg or Config()
@@ -369,27 +393,39 @@ def run(ref_path: str, reads_path: str, do_overlap: bool,
 
     def drain():
         nonlocal header_done
-        fut, cnt = inflight.popleft()
+        fut, cnt, seq = inflight.popleft()
+        t1 = time.perf_counter()
         lines = fut.result()
+        t1 = mark(None, "run_wait", t1, seq)
         for k, v in cnt.items():
             c[k] += v
         if lines and not do_overlap and not header_done:
             out.write(printer.sam_header(store))
             header_done = True
         out.writelines(lines)
+        mark(None, "run_write", t1, seq)
 
-    in_flight = _in_flight([dev, *(mesh_obj or ())])
+    in_flight = _in_flight([dev, *(mesh_obj or ())], spans)
     start, stop = reads_range or (None, None)
-    with concurrent.futures.ThreadPoolExecutor(pipeline_depth) as pool:
-        for batch in iter_read_batches(reads_path, reads_per_batch,
-                                       start=start, stop=stop):
+    batches = iter_read_batches(reads_path, reads_per_batch, start=start,
+                                stop=stop)
+    with stages.recording(spans), \
+            concurrent.futures.ThreadPoolExecutor(pipeline_depth) as pool:
+        for seq in itertools.count():
+            t1 = time.perf_counter()
+            batch = next(batches, None)
+            mark(None, "run_parse", t1, seq)
+            if batch is None:
+                break
             cnt = new_counters()
             if pipeline_depth > 1:
-                fut = pool.submit(in_flight, aligner.align_batch, batch, cnt)
+                fut = pool.submit(in_flight, seq, aligner.align_batch, batch,
+                                  cnt)
             else:       # on the calling thread and its stream
                 fut = concurrent.futures.Future()
-                fut.set_result(aligner.align_batch(batch, cnt))
-            inflight.append((fut, cnt))
+                with stages.bound(spans, seq):
+                    fut.set_result(aligner.align_batch(batch, cnt))
+            inflight.append((fut, cnt, seq))
             if len(inflight) >= pipeline_depth:
                 drain()
         while inflight:
@@ -424,6 +460,8 @@ def run(ref_path: str, reads_path: str, do_overlap: bool,
         stats_out["counters"] = dict(c)
         stats_out["compile_s"] = (native.BUILD_INFO["seconds"]
                                   + build.BUILD_INFO.get("seconds", 0.0))
+        if spans is not None:
+            stats_out["spans"] = spans.table()
         md = aligner.mesh_dispatch
         if md is not None:
             stats_out["mesh"] = {"devices": [str(d) for d in md.mesh],

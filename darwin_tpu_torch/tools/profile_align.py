@@ -24,13 +24,10 @@ stage_seconds``: ``read_upload``, ``seed``, ``filter``, ``extend``,
 ``print`` and the stages nested in them — ``seed_*`` in ``seed``,
 ``extend_*`` in ``extend``, ``ru_*`` in ``read_upload``).  With two read
 batches in flight the stages of both batches add up, so their sum exceeds
-the align phase's wall time.  ``gc_collections`` is the time Python's
-cyclic collector took during the run, inside whichever stage it fell (a
-full collection beside a run's data takes tens of milliseconds; one that
-falls between the two events of an extension dispatch is counted in its
-device time).  ``ext. device ms`` is ``ops.dispatch.EXT_STATS``'s: per
-extension dispatch, the time between an event recorded before its first DP
-launch and one after its last launch, on the dispatch's stream.
+the align phase's wall time.  In the profiled run, ``gc_collections``
+is the time Python's cyclic collector took, inside whichever stage it fell
+(a full collection beside a run's data takes tens of milliseconds): the
+``gc`` spans run() records under the profiler (``utils.stages.Spans``).
 
 The last run is under ``torch.profiler``: it prints the device self time
 of each kernel, their sum, the same by group (``gact_dp``, ``gact_tb``,
@@ -57,7 +54,6 @@ numbers printed.
 from __future__ import annotations
 
 import argparse
-import gc
 import io
 import json
 import os
@@ -66,7 +62,6 @@ import subprocess
 import sys
 import tempfile
 import time
-from contextlib import contextmanager
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -79,34 +74,16 @@ GC_STAGE = "gc_collections"
 RUNS = 3          # cold, warm, and warm under the profiler
 
 
-@contextmanager
-def gc_timer():
-    """Time Python's cyclic collections for the duration of the block;
-    yields {GC_STAGE: seconds}, filled as the block runs."""
-    acc = {GC_STAGE: 0.0}
-    began = [0.0]
-
-    def on_gc(phase, info):
-        if phase == "start":
-            began[0] = time.perf_counter()
-        else:
-            acc[GC_STAGE] += time.perf_counter() - began[0]
-
-    gc.callbacks.append(on_gc)
-    try:
-        yield acc
-    finally:
-        gc.callbacks.remove(on_gc)
-
-
-def run_row(stats, gc_acc, n_reads) -> dict:
-    """One run's JSON row from ``run``'s stats_out and the collector's
-    time."""
+def run_row(stats, n_reads) -> dict:
+    """One run's JSON row from ``run``'s stats_out; a profiled run's
+    stages also hold the collector's time (its ``gc`` spans)."""
     c = stats["counters"]
-    stages = dict(stats["stage_seconds"], **gc_acc)
+    stages = dict(stats["stage_seconds"])
+    if "spans" in stats:
+        stages[GC_STAGE] = sum(e - s for k, _, _, s, e in
+                               stats["spans"]["spans"] if k == "gc") / 1e9
     return {"align_s": stats["align_seconds"],
             "reads_per_s": n_reads / stats["align_seconds"],
-            "ext_device_ms": dispatch.EXT_STATS["device_ms"],
             "spec_hits": c["num_spec_hits"],
             "spec_misses": c["num_spec_misses"],
             "extend_rounds": c["num_extend_rounds"],
@@ -298,30 +275,26 @@ def main(argv=None) -> int:
             last = i == RUNS - 1
             out, err = io.StringIO(), io.StringIO()
             stats = {}
-            dispatch.reset_ext_stats()
-            with gc_timer() as gc_acc:
-                if last:
-                    with profile(activities=[ProfilerActivity.CPU,
-                                             ProfilerActivity.CUDA]) as prof:
-                        t0 = time.perf_counter()
-                        align.run(ref, reads, overlap, cfg=cfg, out=out,
-                                  err=err, device="cuda", stats_out=stats,
-                                  **path)
-                        torch.cuda.synchronize()
-                        wall = time.perf_counter() - t0
-                else:
+            if last:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
                     align.run(ref, reads, overlap, cfg=cfg, out=out,
                               err=err, device="cuda", stats_out=stats,
                               **path)
-            row = run_row(stats, gc_acc, len(truth))
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+            else:
+                align.run(ref, reads, overlap, cfg=cfg, out=out, err=err,
+                          device="cuda", stats_out=stats, **path)
+            row = run_row(stats, len(truth))
             m = re.search(r"finalizing seed position table\): (\d+) msec",
                           err.getvalue())
             row["index_s"] = int(m.group(1)) / 1000
             print(f"run {i}{' (profiled)' if last else ''}: index "
                   f"{row['index_s']:.3f} s, align "
                   f"{row['align_s']:.3f} s -> {row['reads_per_s']:.1f} "
-                  f"reads/s, ext. device ms {row['ext_device_ms']:.1f}; "
-                  f"spec hits {row['spec_hits']}, misses "
+                  f"reads/s; spec hits {row['spec_hits']}, misses "
                   f"{row['spec_misses']}, extend rounds "
                   f"{row['extend_rounds']}", flush=True)
             print("   stages (host s): " + ", ".join(

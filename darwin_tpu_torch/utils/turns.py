@@ -8,12 +8,17 @@ changes hands at every call and every switch interval, and two batches
 take longer than one batch after the other.  So the batches take turns: a
 batch holds the host's turn while it works and hands it over only while it
 waits for the card (``fetch``) — the time a second batch in flight can use.
+``fetch`` records its waits as spans (``utils.stages.mark``): ``wait_card``
+the copy, ``wait_turn`` winning the turn back after it.
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
+import time
+
+from darwin_tpu_torch.utils.stages import mark
 
 _current = threading.local()
 
@@ -41,9 +46,15 @@ def fetch(t):
     card; a batch that holds a turn gives it up while it waits."""
     turns = getattr(_current, "turns", None)
     if turns is None:
-        return t.cpu().numpy()
+        t0 = time.perf_counter()
+        out = t.cpu().numpy()
+        mark(None, "wait_card", t0)
+        return out
     turns._lock.release()
+    t0 = time.perf_counter()
     try:
         return t.cpu().numpy()
     finally:
+        t0 = mark(None, "wait_card", t0)
         turns._lock.acquire()
+        mark(None, "wait_turn", t0)

@@ -113,7 +113,7 @@ def test_mesh_dispatcher_matches_one_device(n):
         got = md.extend_tiles_spec_async(refr, query, *sargs, **skw)()
         assert dispatch.EXT_STATS == {
             "dispatches": 1, "tiles": B * K, "spec_tiles": B * (K - 1),
-            "cells": B * K * T * T, "device_ms": 0.0}
+            "cells": B * K * T * T}
         spec = ("spec_req", "ops_spec")
         _same({k: v for k, v in got.items() if k not in spec},
               {k: v for k, v in want.items() if k not in spec})

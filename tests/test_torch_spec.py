@@ -555,8 +555,7 @@ def test_spec_dispatch_counts_every_computed_tile():
         K=2)()
     B = len(cols[0])
     assert dispatch.EXT_STATS == {"dispatches": 1, "tiles": 2 * B,
-                                  "spec_tiles": B, "cells": 2 * B * T * T,
-                                  "device_ms": 0.0}
+                                  "spec_tiles": B, "cells": 2 * B * T * T}
     with pytest.raises(ValueError, match="square"):
         dispatch.extend_tiles_spec_async(
             torch.from_numpy(ref), torch.from_numpy(query), *cols,
