@@ -16,6 +16,9 @@
 //                   (seed_pos_table.cpp:391-498)
 //   decode_ops    - GACT traceback-op application with the early-cutoff
 //                   word quirk (extender.cpp:280-331)
+//   expand_records - the walker's per-column records -> op arrays
+//   score_alignment - two-piece rescore of an emitted alignment
+//                   (AlignmentScore, extender.cpp:1161-1200)
 
 #include <algorithm>
 #include <cstdint>
@@ -327,6 +330,77 @@ void decode_ops_batch(const uint8_t* ops, int64_t L,
             out_ref + i * L, out_q + i * L,
             curr_ref_out + i, curr_q_out + i, rb_out + i, qb_out + i);
     }
+}
+
+// ---------------------------------------------------------------------------
+// expand_records - the traceback walker's per-column records -> the serial
+// walker's op arrays (darwin_tpu/ops/gact_pallas.py:945-975).  rec is an
+// (RT, n) int32 matrix addressed by element strides (s_row, s_lane), so a
+// slice of a fetched record matrix is read in place.  A record's low 16
+// bits hold the column's insert-run length (bits 0-13) and its closing op
+// (bits 14-15, 0 = none).  Each lane's walk runs from column RT-1 down to 0
+// and writes nI copies of OP_I, then the closing op when it is non-zero; a
+// zero record (a column the walk did not visit) writes nothing.  ops is
+// (n, L) and must hold zeros; ops past L are dropped, n_ops is the true
+// count.
+// ---------------------------------------------------------------------------
+
+void expand_records(const int32_t* rec, int64_t RT, int64_t n,
+                    int64_t s_row, int64_t s_lane, int64_t L,
+                    uint8_t* ops, int32_t* n_ops) {
+    const uint8_t OP_I = 1;
+    for (int64_t b = 0; b < n; b++) {
+        const int32_t* col = rec + b * s_lane;
+        uint8_t* out = ops + b * L;
+        int64_t p = 0;
+        for (int64_t r = RT - 1; r >= 0; r--) {
+            uint32_t w = (uint32_t)col[r * s_row] & 0xFFFF;
+            if (w == 0) continue;
+            int64_t n_ins = w & 0x3FFF;
+            uint8_t closing = (uint8_t)(w >> 14);
+            if (n_ins != 0) {
+                if (p < L) memset(out + p, OP_I, std::min(n_ins, L - p));
+                p += n_ins;
+            }
+            if (closing != 0) {
+                if (p < L) out[p] = closing;
+                p++;
+            }
+        }
+        n_ops[b] = (int32_t)p;
+    }
+}
+
+// ---------------------------------------------------------------------------
+// score_alignment - two-piece rescore of an aligned pair (AlignmentScore,
+// extender.cpp:1161-1200; darwin_tpu/pipeline/extend.py:60-90).  A column
+// is a gap when either side is '-', so a reference-gap run that abuts a
+// query-gap run is one run.  Each run adds max(short, long) when it closes
+// at a non-gap column; a run at the very end is never added.  A non-gap
+// column adds sub5[code(q) * 5 + code(ref)], with A/C/G/T in either case
+// coded 0-3 and every other byte 4.
+// ---------------------------------------------------------------------------
+
+int64_t score_alignment(const uint8_t* ref, const uint8_t* q, int64_t n,
+                        const int64_t* sub5, int64_t gap_open,
+                        int64_t gap_extend, int64_t long_gap_open,
+                        int64_t long_gap_extend) {
+    static const CodeTables t;
+    int64_t score = 0;
+    int64_t run = 0;
+    for (int64_t i = 0; i < n; i++) {
+        if (ref[i] == '-' || q[i] == '-') {
+            run++;
+            continue;
+        }
+        if (run != 0) {
+            score += std::max(gap_open + (run - 1) * gap_extend,
+                              long_gap_open + (run - 1) * long_gap_extend);
+            run = 0;
+        }
+        score += sub5[t.tbl5[q[i]] * 5 + t.tbl5[ref[i]]];
+    }
+    return score;
 }
 
 }  // extern "C"

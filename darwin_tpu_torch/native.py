@@ -1,5 +1,6 @@
 """ctypes bindings for the port's host library (csrc/darwin_native.cpp):
-FASTA scanning, anchor chaining and the batched tile decode.
+FASTA scanning, anchor chaining, the batched tile decode, the walker's
+record expansion and the rescore of an emitted alignment.
 
 The port's own copy of ``darwin_tpu/native.py``.  The library is compiled
 on demand with g++ (plain C ABI) into ``darwin_tpu_torch/_build/``, named
@@ -90,6 +91,12 @@ def _load():
             _p64, _p64, _p64, _p64, _p64, _p8, _p8, _p64, _p64, _p64,
             _p32, _p32]
         lib.decode_ops_batch.restype = None
+        lib.expand_records.argtypes = [ctypes.c_void_p, _i64, _i64, _i64,
+                                       _i64, _i64, _p8, _p32]
+        lib.expand_records.restype = None
+        lib.score_alignment.argtypes = [_p8, _p8, _i64, _p64, _i64, _i64,
+                                        _i64, _i64]
+        lib.score_alignment.restype = _i64
         _lib = lib
         return _lib
 
@@ -174,6 +181,44 @@ def decode_ops_batch_native(ops2d, sel, n_ops, stop_thr, direction,
         np.ascontiguousarray(q_len, np.int64),
         out_ref, out_q, cols, new_ref, new_q, rb, qb)
     return out_ref, out_q, cols, new_ref, new_q, rb, qb
+
+
+def expand_records_native(rec, n_valid: int, L: int):
+    """(RT, B) records -> (ops (n, L) uint8, n_ops (n,) int32) of the
+    first n = min(n_valid, B) lanes, or None if the library is
+    unavailable.  ``rec`` may be any strided view; it is read in place
+    when it is int32."""
+    lib = _load()
+    if lib is None:
+        return None
+    rec = np.asarray(rec)[:, :n_valid]
+    if rec.dtype != np.int32:
+        rec = rec.astype(np.int32)
+    RT, n = rec.shape
+    ops = np.zeros((n, L), np.uint8)
+    n_ops = np.empty(n, np.int32)
+    lib.expand_records(rec.ctypes.data, RT, n,
+                       rec.strides[0] // rec.itemsize,
+                       rec.strides[1] // rec.itemsize, L, ops, n_ops)
+    return ops, n_ops
+
+
+def score_alignment_native(ref, q, sub5, gap_open: int, gap_extend: int,
+                           long_gap_open: int, long_gap_extend: int):
+    """Two-piece rescore of the aligned bytes ``ref`` / ``q`` under the
+    (5, 5) substitution matrix ``sub5``, or None if the library is
+    unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    ref = np.ascontiguousarray(ref, np.uint8)
+    q = np.ascontiguousarray(q, np.uint8)
+    if ref.shape != q.shape:
+        raise ValueError(f"aligned rows differ in length: {ref.shape} "
+                         f"and {q.shape}")
+    return int(lib.score_alignment(
+        ref, q, len(ref), np.ascontiguousarray(sub5, np.int64).reshape(25),
+        gap_open, gap_extend, long_gap_open, long_gap_extend))
 
 
 def fasta_scan_native(data: bytes):

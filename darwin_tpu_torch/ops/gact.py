@@ -8,7 +8,8 @@ Counterpart of ``darwin_tpu/ops/gact.py`` and of the Pallas kernels in
 (which replaces ``_tb_kernel`` and ``_tb_kernel_safe``); ``spec_next_tiles``
 (``spec_next``, ``gather_tiles``, ``tile_sizes``) is the twin of
 ``csrc/gact_next.cu``.  All run on any device; ``ops/gact_cuda.py`` routes
-CPU tensors here and CUDA tensors to the kernels.
+CPU tensors here and CUDA tensors to the kernels.  ``expand_records`` turns
+fetched records into op arrays on the host, in the native host library.
 
 The DP is the exact recurrence of ``darwin_tpu.ops.oracle.clean_align``
 (two-piece affine local Smith-Waterman), for any scoring: the within-column
@@ -35,6 +36,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from darwin_tpu_torch import native
 
 # 8-bit trace word (darwin_tpu/ops/gact.py:45-54).  Bits 0-2: exclusive T
 # field; bits 3-6: gap-source "open" flags (set = the gap opened here, the
@@ -364,36 +367,15 @@ def spec_next_tiles(rec, lane, curr, ref_codes, query_codes, T: int,
 
 
 def expand_records(rec: np.ndarray, n_valid: int, L: int):
-    """Per-column (nI, closing) records -> the serial walker's op arrays,
-    vectorized with np.repeat (darwin_tpu/ops/gact_pallas.py:920-927).
+    """Per-column (nI, closing) records -> the serial walker's op arrays
+    (darwin_tpu/ops/gact_pallas.py:920-975), in the native host library.
 
-    rec: (RT, B) int32.  Returns ops (n_valid, L) uint8 + n_ops (n_valid,).
+    rec: (RT, B) int32, any strided view.  Returns ops (n_valid, L) uint8
+    in walk order + the true op counts n_ops (n_valid,) int32; ops past L
+    are dropped, and columns the walk did not visit hold zero records and
+    expand to no ops.
     """
-    w = np.asarray(rec)[:, :n_valid].astype(np.int64) & 0xFFFF
-    return expand_ops(w & 0x3FFF, (w >> 14) & 0x3, L)
-
-
-def expand_ops(n_ins: np.ndarray, closing: np.ndarray, L: int):
-    """(RT, n) insert-run lengths + closing ops -> (n, L) uint8 op arrays in
-    walk order + true op counts (darwin_tpu/ops/gact_pallas.py:945-975).
-    Columns the walk did not visit hold zero records and expand to no
-    ops."""
-    RT, n_valid = n_ins.shape
-    nI_d = n_ins[::-1]                # walk order: descending column
-    cl_d = closing[::-1]
-    cnts = np.empty((n_valid, RT, 2), np.int64)
-    vals = np.empty((n_valid, RT, 2), np.uint8)
-    cnts[:, :, 0] = nI_d.T
-    cnts[:, :, 1] = (cl_d.T != 0)
-    vals[:, :, 0] = OP_I
-    vals[:, :, 1] = cl_d.T.astype(np.uint8)
-    stream = np.repeat(vals.reshape(-1), cnts.reshape(-1))
-    per_lane = cnts.reshape(n_valid, -1).sum(axis=1)
-    ops = np.zeros((n_valid, L), np.uint8)
-    if stream.size:
-        off = np.concatenate(([0], np.cumsum(per_lane)))
-        lane_of = np.repeat(np.arange(n_valid), per_lane)
-        pos = np.arange(stream.size) - off[lane_of]
-        keep = pos < L
-        ops[lane_of[keep], pos[keep]] = stream[keep]
-    return ops, per_lane.astype(np.int32)
+    res = native.expand_records_native(rec, n_valid, L)
+    if res is None:
+        raise RuntimeError("record expansion: " + native.unavailable_reason())
+    return res

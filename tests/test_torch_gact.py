@@ -237,18 +237,82 @@ def test_large_tile_matches_strip_kernel():
     np.testing.assert_array_equal(qs.numpy(), np.asarray(qs_j)[:B])
 
 
-def test_expand_records_matches_darwin_tpu():
-    rng = np.random.default_rng(2)
-    RT, B = 40, 6
-    n_ins = rng.integers(0, 4, (RT, B)) * (rng.random((RT, B)) < 0.3)
-    closing = rng.choice([0, oracle.OP_M, oracle.OP_D], (RT, B),
-                         p=[0.2, 0.6, 0.2])
-    rec = (n_ins | (closing << 14)).astype(np.int32)
-    for L in (30, 200):
-        ops, n = gact.expand_records(rec, B, L)
-        ops_j, n_j = gact_pallas._expand_records(rec, B, L)
+def _walk_records(rng, RT, B):
+    """(RT, B) records as the walker leaves them: each lane's walk visits
+    the columns from its start down to where it stops, writing an insert
+    run (mostly empty, some long) and a closing M or D per column, and the
+    last column may close nothing; the columns above the start and below
+    the stop hold zeros."""
+    n_ins = rng.integers(0, 3, (RT, B)) * (rng.random((RT, B)) < 0.15)
+    n_ins = np.where(rng.random((RT, B)) < 0.01,
+                     rng.integers(3, 300, (RT, B)), n_ins)
+    closing = rng.choice([oracle.OP_M, oracle.OP_D], (RT, B), p=[0.8, 0.2])
+    rec = n_ins | (closing << 14)
+    col = np.arange(RT)[:, None]
+    start = rng.integers(0, RT, B)
+    stop = rng.integers(0, start + 1)
+    rec = np.where((col <= start) & (col >= stop), rec, 0)
+    rec[stop, np.arange(B)] &= np.where(rng.random(B) < 0.2, 0x3FFF, 0xFFFF)
+    return rec.astype(np.int32)
+
+
+def _expand_case(case):
+    """(records view, n_valid, the Ls) of each expansion case."""
+    if case == "small":
+        # independent random columns
+        rng = np.random.default_rng(2)
+        RT, B = 40, 6
+        n_ins = rng.integers(0, 4, (RT, B)) * (rng.random((RT, B)) < 0.3)
+        closing = rng.choice([0, oracle.OP_M, oracle.OP_D], (RT, B),
+                             p=[0.2, 0.6, 0.2])
+        return (n_ins | (closing << 14)).astype(np.int32), B, (30, 200)
+    rng = np.random.default_rng(sorted(EXPAND_CASES).index(case))
+    RT, B, L = EXPAND_CASES[case]
+    rec = _walk_records(rng, RT, B)
+    if case == "zeros":
+        return np.zeros_like(rec), B, (L,)
+    if case == "columns":
+        # resolve()'s p[:R] of the fetched matrix with its five stats rows,
+        # fewer valid lanes than columns
+        packed = np.concatenate([rec, rng.integers(-9, 9, (5, B),
+                                                   dtype=np.int32)])
+        return packed[:RT], B - 37, (L,)
+    if case == "lanes":
+        # SpecLevels.take: one level of the (K - 1, RT, B) records, a
+        # fancy-indexed subset of its lanes
+        recs = np.stack([rec, _walk_records(rng, RT, B)])
+        lanes = np.sort(rng.choice(B, 77, replace=False))
+        return recs[1][:, lanes], len(lanes), (L,)
+    return rec, B, (L,)
+
+
+# (RT, B, L): the standard 384 tile at the batch sizes the extension
+# sends, both large-tile record heights, an L that cuts most walks short
+EXPAND_CASES = {
+    "small": None,
+    "rt384_b1": (384, 1, 768),
+    "rt384_b128": (384, 128, 768),
+    "rt384_b512": (384, 512, 768),
+    "rt1984_large": (1984, 16, 1536),
+    "rt960_large": (960, 16, 1536),
+    "truncated": (384, 64, 40),
+    "zeros": (384, 32, 768),
+    "columns": (384, 512, 768),
+    "lanes": (384, 512, 768),
+}
+
+
+@pytest.mark.parametrize("case", list(EXPAND_CASES))
+def test_expand_records_matches_darwin_tpu(case):
+    rec, n_valid, Ls = _expand_case(case)
+    for L in Ls:
+        ops, n = gact.expand_records(rec, n_valid, L)
+        ops_j, n_j = gact_pallas._expand_records(rec, n_valid, L)
+        assert ops.dtype == ops_j.dtype and n.dtype == n_j.dtype
         np.testing.assert_array_equal(ops, ops_j)
         np.testing.assert_array_equal(n, n_j)
+    if case == "truncated":
+        assert (n > L).any()
 
 
 def test_wrappers_take_the_twin_on_cpu_and_check_inputs():
