@@ -68,6 +68,14 @@ def new_counters():
         "num_extend_rounds": 0,
         "num_queried_buckets": 0,
         "num_capped_buckets": 0,
+        # overlap mode: the fates of the extended alignments in the MHAP
+        # printer's selection (printer.mhap_lines)
+        "num_mhap_printed": 0,
+        "num_mhap_self": 0,
+        "num_mhap_short": 0,
+        "num_mhap_unselected": 0,
+        "mhap_columns_printed": 0,
+        "mhap_columns_dropped": 0,
     }
 
 
@@ -93,7 +101,8 @@ class Aligner:
     ``stage_seconds``: host seconds per stage over all batches
     (``read_upload``, ``seed``, ``filter``, ``extend``, ``print`` and the
     sub-stages nested in them: the seeder's, the filter's ``filter_build``,
-    ``filter_fetch`` and ``filter_collect``, the extension manager's);
+    ``filter_fetch`` and ``filter_collect``, the extension manager's, the
+    printer's ``print_select`` and ``print_format``);
     ``stage_seconds_cold``: the first batch's alone."""
 
     def __init__(self, cfg: Config, store: GenomeStore,
@@ -222,9 +231,10 @@ class Aligner:
             alignments.extend(emitted[2 * i])
             alignments.extend(emitted[2 * i + 1])
         if cfg.do_overlap:
-            lines = printer.mhap_lines(alignments, reads, self.store, cfg)
+            lines = printer.mhap_lines(alignments, reads, self.store, cfg,
+                                       counters, tacc)
         else:
-            lines = printer.sam_lines(alignments, reads, self.store)
+            lines = printer.sam_lines(alignments, reads, self.store, tacc)
         mark(tacc, "print", t0)
         with self._stage_lock:
             for k, v in tacc.items():
@@ -443,6 +453,12 @@ def run(ref_path: str, reads_path: str, do_overlap: bool,
           file=err)
     print(f"[darwin_tpu_torch] #queried buckets: {c['num_queried_buckets']}"
           f"  #occupancy-capped: {c['num_capped_buckets']}", file=err)
+    if do_overlap:
+        print(f"[darwin_tpu_torch] #mhap printed: {c['num_mhap_printed']}  "
+              f"#self: {c['num_mhap_self']}  #short: {c['num_mhap_short']}  "
+              f"#unselected: {c['num_mhap_unselected']}  columns printed: "
+              f"{c['mhap_columns_printed']}  columns dropped: "
+              f"{c['mhap_columns_dropped']}", file=err)
     print("[darwin_tpu_torch] kernel launches: " + "  ".join(
         f"{k}={v}" for k, v in LAUNCHES.items()), file=err)
     print(f"Time elapsed (aligning reads): {int(align_s * 1000)} msec",

@@ -1,15 +1,21 @@
 """SAM and MHAP output (printer_body, software/printer.cpp:7-180): the
 port's own copy of ``darwin_tpu/pipeline/printer.py``'s ``sam_header``,
-``sam_lines`` and ``mhap_lines``."""
+``sam_lines`` and ``mhap_lines``.
+
+Both printers mark two sub-stages of a batch's ``print``:
+``print_select`` (the sort and the suppression loops) and
+``print_format`` (decoding, match counting and the records' text)."""
 
 from __future__ import annotations
 
+import time
 from typing import List
 
 import numpy as np
 
 from darwin_tpu_torch.genome import GenomeStore
 from darwin_tpu_torch.pipeline.extend import ExtendAlignment
+from darwin_tpu_torch.utils.stages import mark
 
 
 def sam_header(store: GenomeStore) -> str:
@@ -46,8 +52,9 @@ def _cigar(e: ExtendAlignment) -> str:
 
 
 def sam_lines(alignments: List[ExtendAlignment], reads,
-              store: GenomeStore) -> List[str]:
+              store: GenomeStore, stage_seconds=None) -> List[str]:
     """software/printer.cpp:7-98, minus the header (emitted once)."""
+    t0 = time.perf_counter()
     als = sorted(alignments, key=lambda e: (e.read_num, -e.score))
     # suppress secondaries overlapping > 50% of a better one (:23-48)
     for i, e1 in enumerate(als):
@@ -65,6 +72,7 @@ def sam_lines(alignments: List[ExtendAlignment], reads,
             overlap = e - s if e > s else 0
             if 2 * overlap > (e_2 - s2):
                 e2.do_print = False
+    t0 = mark(stage_seconds, "print_select", t0)
 
     out = []
     for e in als:
@@ -78,15 +86,26 @@ def sam_lines(alignments: List[ExtendAlignment], reads,
             str(1 + e.reference_start_offset), "60", _cigar(e), "*", "0",
             "0", seq, "*", f"AS:i:{e.score}", f"ZS:i:{e.score}",
         ]) + "\n")
+    mark(stage_seconds, "print_format", t0)
     return out
 
 
 def mhap_lines(alignments: List[ExtendAlignment], reads,
-               store: GenomeStore, cfg) -> List[str]:
+               store: GenomeStore, cfg, counters: dict,
+               stage_seconds=None) -> List[str]:
     """software/printer.cpp:100-180: per read and target, the best
     alignment that reaches the last tenth of either sequence, as two MHAP
     records (target-query and query-target), each followed by its two
-    aligned strings."""
+    aligned strings.
+
+    counters: the batch's counter dict, given the alignments' fates: each
+    is printed (``num_mhap_printed``), or dropped as not selected
+    (``num_mhap_unselected``), as a read's alignment to itself
+    (``num_mhap_self``) or as shorter than ``min_overlap``
+    (``num_mhap_short``), in that order of precedence; and the aligned
+    columns of those printed and of those dropped
+    (``mhap_columns_printed``, ``mhap_columns_dropped``)."""
+    t0 = time.perf_counter()
     als = sorted(alignments, key=lambda e: (e.read_num, e.chr_id, -e.score))
     for i, e1 in enumerate(als):
         ref_end = 1 + e1.reference_end_offset
@@ -105,25 +124,36 @@ def mhap_lines(alignments: List[ExtendAlignment], reads,
             if e1.chr_id != e2.chr_id:
                 break
             e2.do_print = False
+    t0 = mark(stage_seconds, "print_select", t0)
 
     out = []
     for e in als:
-        if not e.do_print:
-            continue
         read = reads[e.read_num]
         r1 = store.chromosomes[e.chr_id].name
         r2 = read.name
+        ral = e.reference_end_offset + 1 - e.reference_start_offset
+        qal = e.query_end_offset + 1 - e.query_start_offset
+        ovl = (ral + qal) // 2
+        if not e.do_print:
+            why = "num_mhap_unselected"
+        elif r1 == r2:
+            why = "num_mhap_self"
+        elif ovl < cfg.min_overlap:
+            why = "num_mhap_short"
+        else:
+            why = "num_mhap_printed"
+        printed = why == "num_mhap_printed"
+        counters[why] += 1
+        counters["mhap_columns_printed" if printed
+                 else "mhap_columns_dropped"] += len(e.aligned_reference)
+        if not printed:
+            continue
         strand = 1 if e.strand == "-" else 0
         ar = e.aligned_reference.decode()
         aq = e.aligned_query.decode()
         matches = int(np.count_nonzero(
             np.frombuffer(e.aligned_reference.upper(), np.uint8)
             == np.frombuffer(e.aligned_query.upper(), np.uint8)))
-        ral = e.reference_end_offset + 1 - e.reference_start_offset
-        qal = e.query_end_offset + 1 - e.query_start_offset
-        ovl = (ral + qal) // 2
-        if ovl < cfg.min_overlap or r1 == r2:
-            continue
         # the reference narrows to float32 before printf re-promotes
         # (printer.cpp:166 `float error = ...`); the narrowing moves
         # half-ulp cases across the %.3f rounding boundary (e.g.
@@ -142,4 +172,5 @@ def mhap_lines(alignments: List[ExtendAlignment], reads,
                    f"{qlen} 0 {rs} {re} {rlen}\n")
         out.append(aq + "\n")
         out.append(ar + "\n")
+    mark(stage_seconds, "print_format", t0)
     return out

@@ -27,7 +27,7 @@ from darwin_tpu_torch.config import Config
 from darwin_tpu_torch.genome import GenomeStore, reads_from_numpy
 from darwin_tpu_torch.index import seed_table
 from darwin_tpu_torch.pipeline import printer
-from darwin_tpu_torch.pipeline.align import run
+from darwin_tpu_torch.pipeline.align import new_counters, run
 from darwin_tpu_torch.pipeline.extend import ExtendAlignment
 from darwin_tpu_torch.seeding.seeder import Seeder
 from darwin_tpu_torch.utils.simulate import mutate_read
@@ -190,7 +190,8 @@ def test_mhap_lines_match_darwin_tpu(case):
                                  reference_start_offset=1800)],
     }[case]
     got = printer.mhap_lines([_alignment(ExtendAlignment, **kw)
-                              for kw in kws], reads, store, cfg)
+                              for kw in kws], reads, store, cfg,
+                             new_counters())
     want = jprinter.mhap_lines([_alignment(JExtendAlignment, **kw)
                                 for kw in kws], reads, store, jcfg)
     assert got == want
@@ -268,3 +269,171 @@ def test_strand_dependent_recall_is_darwin_tpu_s_too(tmp_path):
     for key in ("++", "+-", "--"):
         assert found[key][0] >= 0.95 * found[key][1], found
     assert found["-+"][0] <= 0.5 * found["-+"][1], found
+
+
+def _printer_inputs(query="q"):
+    """(store, reads) of test_mhap_lines_match_darwin_tpu: targets t0
+    (1,200 A) and t1 (3,000 C), one query read named ``query``."""
+    store = GenomeStore.from_numpy(["t0", "t1"], [
+        np.full(1200, 65, np.uint8), np.full(3000, 67, np.uint8)])
+    return store, reads_from_numpy([query], [np.full(1200, 71, np.uint8)])
+
+
+FATES = ("num_mhap_printed", "num_mhap_self", "num_mhap_short",
+         "num_mhap_unselected")
+SHORT = dict(reference_end_offset=300, query_end_offset=300,
+             reference_length=310, query_length=310,
+             aligned_reference=b"A" * 301, aligned_query=b"A" * 301)
+INNER = dict(chr_id=1, reference_length=3000, reference_end_offset=1500,
+             query_length=3000, query_end_offset=1199)
+
+
+@pytest.mark.parametrize("query,kws,fates", [
+    ("q", [{}], (1, 0, 0, 0)),
+    ("t0", [{}], (0, 1, 0, 0)),
+    ("q", [SHORT], (0, 0, 1, 0)),
+    ("q", [INNER], (0, 0, 0, 1)),
+    # the score-90 alignment to t0 wins over the score-50 one
+    ("q", [dict(score=50, strand="-"), dict(score=90),
+           dict(chr_id=1, score=10, reference_length=3000,
+                reference_end_offset=2999, reference_start_offset=1800)],
+     (2, 0, 0, 1)),
+    # one reason each: a short self-alignment is a self-alignment, an
+    # unselected one is unselected
+    ("t0", [SHORT], (0, 1, 0, 0)),
+    ("t0", [dict(score=200), dict(score=100)], (0, 1, 0, 1)),
+], ids=["printed", "self", "short", "unselected", "best_per_target",
+        "short_self", "unselected_self"])
+def test_mhap_counters_count_each_alignment_once(query, kws, fates):
+    """Every alignment the printer is given is counted once, as printed or
+    by the first reason it was dropped; its aligned columns go to printed
+    or dropped; the lines are those of a second call with counters of
+    its own."""
+    _, cfg = _cfgs(min_overlap=400)
+    store, reads = _printer_inputs(query)
+    counters = new_counters()
+    got = printer.mhap_lines([_alignment(ExtendAlignment, **kw)
+                              for kw in kws], reads, store, cfg, counters)
+    assert got == printer.mhap_lines([_alignment(ExtendAlignment, **kw)
+                                      for kw in kws], reads, store, cfg,
+                                     new_counters())
+    assert tuple(counters[k] for k in FATES) == fates
+    assert counters["num_mhap_printed"] * 6 == len(got)
+    cols = [len(_alignment(ExtendAlignment, **kw).aligned_reference)
+            for kw in kws]
+    assert counters["mhap_columns_printed"] + \
+        counters["mhap_columns_dropped"] == sum(cols)
+    assert counters["mhap_columns_printed"] == sum(
+        len(ln) - 1 for ln in got[1::6])
+
+
+@pytest.fixture(scope="module")
+def counted(world):
+    """The port's run() on the read set under torch.profiler with a
+    stats_out (so it records spans), the aligned columns and the number
+    of the alignments handed to the printer recorded:
+    (MHAP, stderr, stats_out, [(alignments, columns)] per batch)."""
+    from torch.profiler import ProfilerActivity, profile
+    tmp, _, _ = world
+    _, cfg = _cfgs()
+    given = []
+    mhap_lines = printer.mhap_lines
+
+    def recording(alignments, *a, **kw):
+        given.append((len(alignments),
+                      sum(len(e.aligned_reference) for e in alignments)))
+        return mhap_lines(alignments, *a, **kw)
+    mp = pytest.MonkeyPatch()
+    mp.setattr(printer, "mhap_lines", recording)
+    out, err, stats = io.StringIO(), io.StringIO(), {}
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            run(str(tmp / "reads.fa"), str(tmp / "reads.fa"), True, cfg=cfg,
+                out=out, err=err, device="cpu", stats_out=stats,
+                reads_per_batch=6, **K1)
+    finally:
+        mp.undo()
+    return out.getvalue(), err.getvalue(), stats, given
+
+
+def test_mhap_counters_add_up_over_a_run(counted):
+    """Over a run: six lines a printed overlap, every alignment handed to
+    the printer counted once, its columns printed or dropped, and the
+    counters on one telemetry line after the counter block."""
+    mhap, err, stats, given = counted
+    c = stats["counters"]
+    assert c["num_mhap_printed"] * 6 == mhap.count("\n") > 0
+    assert sum(c[k] for k in FATES) == sum(n for n, _ in given)
+    assert c["mhap_columns_printed"] + c["mhap_columns_dropped"] == sum(
+        cols for _, cols in given)
+    # every read of the set but the lonely one finds itself at least
+    assert c["num_mhap_self"] >= 15 and c["mhap_columns_dropped"] > 0
+    lines = err.splitlines()
+    tele = [i for i, ln in enumerate(lines) if "#mhap printed" in ln]
+    assert len(tele) == 1 and tele[0] > max(
+        i for i, ln in enumerate(lines) if ln.startswith("#"))
+    assert lines[tele[0]] == (
+        f"[darwin_tpu_torch] #mhap printed: {c['num_mhap_printed']}  "
+        f"#self: {c['num_mhap_self']}  #short: {c['num_mhap_short']}  "
+        f"#unselected: {c['num_mhap_unselected']}  columns printed: "
+        f"{c['mhap_columns_printed']}  columns dropped: "
+        f"{c['mhap_columns_dropped']}")
+
+
+def test_mhap_and_block_unchanged_by_spans(world, counted):
+    """A run that records spans (three batches) prints darwin_tpu's MHAP
+    bytes and 7-line counter block, as the untraced run does."""
+    _, want, block = world
+    mhap, err, stats, _ = counted
+    assert "spans" in stats
+    assert mhap == want
+    assert _block(err) == block
+
+
+def test_print_sub_spans_lie_inside_print(counted):
+    """Each batch's print holds one print_select and then one
+    print_format, on its thread."""
+    _, _, stats, given = counted
+    spans = stats["spans"]["spans"]
+    prints = {(th, b): (s, e) for n, th, b, s, e in spans if n == "print"}
+    assert len(prints) == len(given) == 3
+    for name in ("print_select", "print_format"):
+        subs = [(th, b, s, e) for n, th, b, s, e in spans if n == name]
+        assert len(subs) == len(prints)
+        for th, b, s, e in subs:
+            ps, pe = prints[th, b]
+            assert ps <= s <= e <= pe, (name, th, b)
+    sel = {(th, b): e for n, th, b, _, e in spans if n == "print_select"}
+    assert all(sel[th, b] <= s for n, th, b, s, _ in spans
+               if n == "print_format")
+
+
+def test_overlap_run_equals_the_benchmark_reference(tmp_path):
+    """run(overlap=True) against the benchmark's plain reference
+    (benchmark/reference/darwin.py), record for record, on a read set
+    drawn at ecoli_k12_pacbio's error profile from benchmark/tests/tiny.py's
+    uniform genome."""
+    import json
+    import os
+    from benchmark import harness
+    from benchmark.gen import reads as greads
+    from benchmark.reference.darwin import Reference
+    from benchmark.tests import tiny
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "benchmark", "configs",
+                           "ecoli_k12_pacbio.json")) as f:
+        profile = json.load(f)["reads"]
+    _, traffic, config = tiny.cell("overlap")
+    config = dict(config, reads=dict(config["reads"],
+                                     error=profile["error"]))
+    read_set, reads = harness.make_inputs(config, traffic, 2**31 + 17, 8)
+    (tmp_path / "set.fa").write_bytes(greads.fasta_bytes(read_set))
+    (tmp_path / "reads.fa").write_bytes(greads.fasta_bytes(reads))
+    out = io.StringIO()
+    run(str(tmp_path / "set.fa"), str(tmp_path / "reads.fa"), True, out=out,
+        err=io.StringIO(), device="cpu", **tiny.RUN)
+    lines = [ln + "\n" for ln in out.getvalue().split("\n") if ln]
+    got = harness.records_by_read([(0, lines)], [n for n, _ in reads], True)
+    want = Reference(read_set, True, "cpu").align(reads)
+    assert got == want
+    assert sum(1 for v in want.values() if v) >= len(reads) // 2

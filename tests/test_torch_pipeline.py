@@ -164,7 +164,7 @@ def test_profile_stage_timers_cover_the_path(world):
         "seed_fetch", "seed_chain", "filter", "filter_build",
         "filter_fetch", "filter_collect", "extend", "extend_req",
         "extend_pack", "extend_enqueue", "extend_dispatch", "extend_fetch",
-        "extend_decode", "print"}
+        "extend_decode", "print", "print_select", "print_format"}
     assert all(v > 0 for v in total.values()), total
     for k, v in total.items():
         assert stats["stage_seconds_cold"][k] + \
