@@ -86,8 +86,8 @@ Phases (each prints its lines; any failure raises, so the exit is nonzero):
      127.0.0.1 over gloo, both on this machine's card(s), over phase 5's
      case: each a real half of the reads, the merged SAM identical to the
      one-process run's, the summed counters equal to its counters (the
-     extension rounds apart: they count per read batch), no rank
-     rebuilding a library;
+     extension rounds and decode calls apart: they count per read batch),
+     no rank rebuilding a library;
  14. GRCh38 with its N gaps: phase 11's genome with 133 Mbp of N in
      GRCh38's gap classes (telomeres, short arms, heterochromatin, 100-N
      scaffold gaps; ``utils.synth.HUMAN_GAPS``) and 512 reads of 10 kb:
@@ -830,8 +830,9 @@ def _counter_block(err_text):
 
 def _chains(err_text):
     """(hits, misses, extension rounds) from run()'s spec line."""
-    ln = next(x for x in err_text.splitlines() if "#spec hits" in x).split()
-    return int(ln[3]), int(ln[6]), int(ln[-1])
+    ln = next(x for x in err_text.splitlines() if "#spec hits" in x)
+    return tuple(int(re.search(f"#{k}: (\\d+)", ln).group(1))
+                 for k in ("spec hits", "spec misses", "extend rounds"))
 
 
 def _both_devices(ref, reads, overlap, cfg=None, **run_kw):
@@ -1844,8 +1845,9 @@ def phase_multihost(seed, smi, dirs, results, stats):
     check(line is not None, "rank 0 printed no global counters")
     total = {k: int(v) for k, v in re.findall(r"(\w+)=(\d+)", line)}
     rounds = total.pop("num_extend_rounds")
+    total.pop("num_decode_calls")       # per read batch too
     check(total == {k: v for k, v in want.items()
-                    if k != "num_extend_rounds"},
+                    if k not in ("num_extend_rounds", "num_decode_calls")},
           f"summed counters {total} differ from {want}")
     after = [os.stat(p) for p in libs]
     check([(a.st_ino, a.st_mtime_ns) for a in after]

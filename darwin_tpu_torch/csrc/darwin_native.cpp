@@ -19,10 +19,14 @@
 //   expand_records - the walker's per-column records -> op arrays
 //   score_alignment - two-piece rescore of an emitted alignment
 //                   (AlignmentScore, extender.cpp:1161-1200)
+//   ext_table_*   - a read batch's extensions and their tile state machine
+//                   (extender.cpp:34-533): requests, the decode of a chain
+//                   level with its acceptance, the emitted alignments
 
 #include <algorithm>
 #include <cstdint>
 #include <cstring>
+#include <new>
 #include <vector>
 
 extern "C" {
@@ -254,15 +258,15 @@ int64_t chain_anchors(const int64_t* hits_bin, const int32_t* hits_off,
 // Returns the number of alignment columns written.
 // ---------------------------------------------------------------------------
 
-int64_t decode_ops(const uint8_t* ops, int64_t n_ops, int64_t stop_thr,
-                   int32_t direction,
-                   const uint8_t* bases, int64_t ref_start_addr,
-                   const uint8_t* qbytes,
-                   int64_t curr_ref_in, int64_t curr_q_in,
-                   int64_t ref_len, int64_t q_len,
-                   uint8_t* out_ref, uint8_t* out_q,
-                   int64_t* curr_ref_out, int64_t* curr_q_out,
-                   int32_t* hit_ref_bound, int32_t* hit_q_bound) {
+static int64_t decode_ops(const uint8_t* ops, int64_t n_ops,
+                          int64_t stop_thr, int32_t direction,
+                          const uint8_t* bases, int64_t ref_start_addr,
+                          const uint8_t* qbytes,
+                          int64_t curr_ref_in, int64_t curr_q_in,
+                          int64_t ref_len, int64_t q_len,
+                          uint8_t* out_ref, uint8_t* out_q,
+                          int64_t* curr_ref_out, int64_t* curr_q_out,
+                          int32_t* hit_ref_bound, int32_t* hit_q_bound) {
     int64_t curr_ref = curr_ref_in;
     int64_t curr_q = curr_q_in;
     int64_t cols = 0;
@@ -302,35 +306,6 @@ int64_t decode_ops(const uint8_t* ops, int64_t n_ops, int64_t stop_thr,
     return cols;
 }
 
-
-// ---------------------------------------------------------------------------
-// decode_ops_batch - one call applies a whole dispatch round's tracebacks.
-// sel[i] picks row b of the (B, L) op matrix; outputs are compact (nsel, L).
-// Per-tile semantics identical to decode_ops above.
-// ---------------------------------------------------------------------------
-
-void decode_ops_batch(const uint8_t* ops, int64_t L,
-                      const int64_t* sel, int64_t nsel,
-                      const int64_t* n_ops, const int64_t* stop_thr,
-                      const int32_t* direction,
-                      const uint8_t* bases, const int64_t* ref_start_addr,
-                      const uint8_t* qconcat, const int64_t* q_off,
-                      const int64_t* curr_ref_in, const int64_t* curr_q_in,
-                      const int64_t* ref_len, const int64_t* q_len,
-                      uint8_t* out_ref, uint8_t* out_q,
-                      int64_t* cols_out,
-                      int64_t* curr_ref_out, int64_t* curr_q_out,
-                      int32_t* rb_out, int32_t* qb_out) {
-    for (int64_t i = 0; i < nsel; i++) {
-        int64_t b = sel[i];
-        cols_out[i] = decode_ops(
-            ops + b * L, n_ops[i], stop_thr[i], direction[i],
-            bases, ref_start_addr[i], qconcat + q_off[i],
-            curr_ref_in[i], curr_q_in[i], ref_len[i], q_len[i],
-            out_ref + i * L, out_q + i * L,
-            curr_ref_out + i, curr_q_out + i, rb_out + i, qb_out + i);
-    }
-}
 
 // ---------------------------------------------------------------------------
 // expand_records - the traceback walker's per-column records -> the serial
@@ -401,6 +376,374 @@ int64_t score_alignment(const uint8_t* ref, const uint8_t* q, int64_t n,
         score += sub5[t.tbl5[q[i]] * 5 + t.tbl5[ref[i]]];
     }
     return score;
+}
+
+// ---------------------------------------------------------------------------
+// The extension table: every extension of one read batch with its tile
+// state machine (ExtendAlignments, graph.h:97-121; extender.cpp:34-533;
+// darwin_tpu/pipeline/extend.py:115-370, whose _Ext it holds field for
+// field).  One table per ExtensionManager.run(); two batches in flight use
+// two tables from two threads, and nothing here is shared between tables.
+//
+// Per extension: the strand, its chromosome's start and length, the read's
+// length and offset in the query buffer, the current position, the four
+// start / end offsets, the left / right / large-tile flags, the chained
+// hits as [begin, end) ranges of two shared uint64 arrays (popping moves
+// end down), the tile count and the aligned columns of each side.  The
+// left side's columns are kept in decode order (walking backward) and
+// reversed once at emit, which is the reference's prepend of each chunk.
+//
+// Entry points return a negative code on a fault the caller raises for:
+// EXT_BAD_INDEX (an extension or row out of range), EXT_BAD_OPS (a tile's
+// op count outside its row), EXT_NO_HIT (a large tile asked for with no
+// chained hit left, where darwin_tpu's hits[-1] raises).
+// ---------------------------------------------------------------------------
+
+enum { EXT_BAD_INDEX = -1, EXT_BAD_OPS = -2, EXT_NO_HIT = -3 };
+
+// request fields, in the order ext_requests writes them
+enum { RQ_R_START, RQ_R_SIZE, RQ_Q_START, RQ_Q_SIZE, RQ_REV, RQ_RT, RQ_QT,
+       RQ_N };
+
+struct Ext {
+    int64_t ref_start_addr, ref_len, q_len, q_code_start;
+    int64_t curr_ref, curr_q;
+    int64_t ref_start_off, q_start_off, ref_end_off, q_end_off;
+    int64_t lbeg, lend, rbeg, rend;
+    int64_t tiles;
+    int64_t req[RQ_N];      // the request of a lane refused at a level
+    bool rc, left_done, right_done, used_large, finished, emitted, has_req;
+    std::vector<uint8_t> left_ref, left_q, right_ref, right_q;
+};
+
+struct ExtTable {
+    std::vector<Ext> ext;
+    std::vector<uint64_t> left_hits, right_hits;
+    const uint8_t* bases;     // the genome with its margin (caller-owned)
+    const uint8_t* qascii;    // the read batch's query buffer (caller-owned)
+    int64_t tile, overlap, large_long, large_short;
+    bool do_overlap;
+    int64_t sub5[25];
+    int64_t gap_open, gap_extend, long_gap_open, long_gap_extend;
+};
+
+// _large_sizes: (rt, qt) of a large tile toward the side's last hit
+static bool large_sizes(const ExtTable& t, const Ext& e, bool left,
+                        int64_t* rt, int64_t* qt) {
+    int64_t beg = left ? e.lbeg : e.rbeg, end = left ? e.lend : e.rend;
+    if (end == beg) return false;
+    uint64_t hit = (left ? t.left_hits : t.right_hits)[end - 1];
+    int64_t h1 = e.ref_start_addr + e.curr_ref, o1 = e.curr_q;
+    int64_t h2 = (int64_t)(hit >> 32), o2 = (int64_t)(hit & 0xFFFFFFFF);
+    bool big_ref = left ? (h1 - h2) > (o1 - o2) : (h2 - h1) > (o2 - o1);
+    *rt = big_ref ? t.large_long : t.large_short;
+    *qt = big_ref ? t.large_short : t.large_long;
+    return true;
+}
+
+// _Ext.request, q_start in the query buffer; counts large tiles
+static bool make_request(const ExtTable& t, const Ext& e, int64_t* r,
+                         int64_t* n_large) {
+    int64_t rt = t.tile, qt = t.tile;
+    bool left = !e.left_done;
+    if (e.used_large) {
+        if (!large_sizes(t, e, left, &rt, &qt)) return false;
+        ++*n_large;
+    }
+    if (left) {
+        r[RQ_R_START] = e.ref_start_addr
+                        + (e.curr_ref >= rt ? e.curr_ref - rt + 1 : 0);
+        r[RQ_R_SIZE] = std::min(e.curr_ref + 1, rt);
+        r[RQ_Q_START] = e.q_code_start
+                        + (e.curr_q >= qt ? e.curr_q - qt + 1 : 0);
+        r[RQ_Q_SIZE] = std::min(e.curr_q + 1, qt);
+    } else {
+        r[RQ_R_START] = e.ref_start_addr + e.curr_ref;
+        r[RQ_R_SIZE] = std::min(e.ref_len - e.curr_ref, rt);
+        r[RQ_Q_START] = e.q_code_start + e.curr_q;
+        r[RQ_Q_SIZE] = std::min(e.q_len - e.curr_q, qt);
+    }
+    r[RQ_REV] = left ? 0 : 1;
+    r[RQ_RT] = rt;
+    r[RQ_QT] = qt;
+    return true;
+}
+
+// hit popping: keep hits up to the last one still ahead of the position
+// (extender.cpp:336-351 / :472-486)
+static void pop_hits(const std::vector<uint64_t>& hits, int64_t beg,
+                     int64_t* end, int64_t x, int64_t q, bool left) {
+    int64_t i = *end;
+    for (; i > beg; i--) {
+        int64_t h = (int64_t)(hits[i - 1] >> 32);
+        int64_t o = (int64_t)(hits[i - 1] & 0xFFFFFFFF);
+        if (left ? (h < x && o < q) : (h > x && o > q)) break;
+    }
+    *end = i;
+}
+
+// _post_decode, left side (extender.cpp:336-394); true when finished
+static bool finish_left(const ExtTable& t, Ext& e, int64_t n_ops) {
+    pop_hits(t.left_hits, e.lbeg, &e.lend, e.ref_start_addr + e.curr_ref,
+             e.curr_q, true);
+    bool at_bound = e.ref_start_off == 0 || e.q_start_off == 0;
+    bool no_hits = e.lend == e.lbeg;
+    // the fw-only empty-hit stop (extender.cpp:353)
+    bool outer = n_ops == 0 || at_bound || (!e.rc && no_hits);
+    if (!outer) {
+        e.used_large = false;
+        return false;
+    }
+    if (!(e.used_large || no_hits || at_bound)) {
+        e.used_large = true;
+        return false;
+    }
+    e.left_done = true;
+    if (e.ref_start_off > 0) e.ref_start_off = e.curr_ref + 1;
+    if (e.q_start_off > 0) e.q_start_off = e.curr_q + 1;
+    if (e.curr_ref + 1 < e.ref_len && e.curr_q + 1 < e.q_len
+            && !e.right_done) {
+        e.curr_ref = e.ref_end_off + 1;
+        e.curr_q = e.q_end_off + 1;
+        return false;
+    }
+    // the right side cannot start: the rc path emits (extender.cpp:
+    // 886-888), the fw path drops the alignment (:363-382)
+    e.right_done = true;
+    e.emitted = e.rc;
+    return true;
+}
+
+// _post_decode, right side (extender.cpp:472-524)
+static bool finish_right(const ExtTable& t, Ext& e, int64_t n_ops) {
+    pop_hits(t.right_hits, e.rbeg, &e.rend, e.ref_start_addr + e.curr_ref,
+             e.curr_q, false);
+    bool at_end = e.curr_ref == e.ref_len || e.curr_q == e.q_len;
+    if (!(n_ops == 0 || at_end)) {
+        e.used_large = false;
+        return false;
+    }
+    if (!(e.used_large || e.rend == e.rbeg || at_end)) {
+        e.used_large = true;
+        return false;
+    }
+    e.ref_end_off = e.curr_ref - 1;
+    e.q_end_off = e.curr_q - 1;
+    e.emitted = true;
+    e.right_done = true;
+    return true;
+}
+
+// one tile: tile_stop, decode_ops into the side's columns, apply_native
+// and _post_decode; 0, 1 when the extension finished, or a fault code
+static int64_t decode_tile(ExtTable& t, Ext& e, const uint8_t* ops,
+                           int64_t n_ops) {
+    bool left = !e.left_done;
+    // decode-side tile sizes are gated by do_overlap (extender.cpp:261,408)
+    int64_t rt = t.tile, qt = t.tile;
+    if (e.used_large && !t.do_overlap && !large_sizes(t, e, left, &rt, &qt))
+        return EXT_NO_HIT;
+    std::vector<uint8_t>& vr = left ? e.left_ref : e.right_ref;
+    std::vector<uint8_t>& vq = left ? e.left_q : e.right_q;
+    size_t at = vr.size();
+    vr.resize(at + n_ops);
+    vq.resize(at + n_ops);
+    int64_t new_ref, new_q;
+    int32_t rb, qb;
+    int64_t cols = decode_ops(
+        ops, n_ops, std::min(rt, qt) - t.overlap, left ? 0 : 1, t.bases,
+        e.ref_start_addr, t.qascii + e.q_code_start, e.curr_ref, e.curr_q,
+        e.ref_len, e.q_len, vr.data() + at, vq.data() + at, &new_ref,
+        &new_q, &rb, &qb);
+    vr.resize(at + cols);
+    vq.resize(at + cols);
+    e.tiles++;
+    if (left) {
+        if (rb) e.ref_start_off = 0;
+        if (qb) e.q_start_off = 0;
+    }
+    e.curr_ref = new_ref;
+    e.curr_q = new_q;
+    e.finished = left ? finish_left(t, e, n_ops) : finish_right(t, e, n_ops);
+    if (e.finished && !e.emitted) {     // dropped: its columns are not read
+        std::vector<uint8_t>().swap(e.left_ref);
+        std::vector<uint8_t>().swap(e.left_q);
+        std::vector<uint8_t>().swap(e.right_ref);
+        std::vector<uint8_t>().swap(e.right_q);
+    }
+    return e.finished ? 1 : 0;
+}
+
+// fields: (7, n) int64 rows strand_rc, ref_start_addr, ref_len, q_len,
+// q_code_start, curr_ref, curr_q.  left_off / right_off: (n + 1) prefix
+// offsets into left_hits (each list ascending) / right_hits (descending).
+// params: tile_size, tile_overlap, large_tile_long, large_tile_short,
+// do_overlap, gap_open, gap_extend, long_gap_open, long_gap_extend; sub5
+// the (5, 5) substitution matrix.  bases and qascii stay the caller's and
+// must outlive the table.  Returns nullptr when memory runs out.
+void* ext_table_new(int64_t n, const int64_t* fields,
+                    const uint64_t* left_hits, const int64_t* left_off,
+                    const uint64_t* right_hits, const int64_t* right_off,
+                    const uint8_t* bases, const uint8_t* qascii,
+                    const int64_t* params, const int64_t* sub5) {
+    ExtTable* t = nullptr;
+    try {
+        t = new ExtTable();
+        t->ext.resize(n);
+        t->left_hits.assign(left_hits, left_hits + left_off[n]);
+        t->right_hits.assign(right_hits, right_hits + right_off[n]);
+    } catch (const std::bad_alloc&) {
+        delete t;
+        return nullptr;
+    }
+    t->bases = bases;
+    t->qascii = qascii;
+    t->tile = params[0];
+    t->overlap = params[1];
+    t->large_long = params[2];
+    t->large_short = params[3];
+    t->do_overlap = params[4] != 0;
+    t->gap_open = params[5];
+    t->gap_extend = params[6];
+    t->long_gap_open = params[7];
+    t->long_gap_extend = params[8];
+    memcpy(t->sub5, sub5, sizeof(t->sub5));
+    for (int64_t i = 0; i < n; i++) {
+        Ext& e = t->ext[i];
+        e.rc = fields[i] != 0;
+        e.ref_start_addr = fields[n + i];
+        e.ref_len = fields[2 * n + i];
+        e.q_len = fields[3 * n + i];
+        e.q_code_start = fields[4 * n + i];
+        e.curr_ref = e.ref_start_off = e.ref_end_off = fields[5 * n + i];
+        e.curr_q = e.q_start_off = e.q_end_off = fields[6 * n + i];
+        e.lbeg = left_off[i];
+        e.lend = left_off[i + 1];
+        e.rbeg = right_off[i];
+        e.rend = right_off[i + 1];
+        e.tiles = 0;
+        e.left_done = e.right_done = e.used_large = false;
+        e.finished = e.emitted = e.has_req = false;
+    }
+    return t;
+}
+
+void ext_table_free(void* h) { delete static_cast<ExtTable*>(h); }
+
+// The next tile's request of each of the n extensions exts[] into out
+// (RQ_N, n): a lane refused at a chain level gets the request it was
+// refused with, which is then dropped; the others compute theirs.
+// Returns the large tiles counted (num_large_tiles), or a fault code.
+int64_t ext_requests(void* h, const int64_t* exts, int64_t n,
+                     int64_t* out) {
+    ExtTable& t = *static_cast<ExtTable*>(h);
+    int64_t n_large = 0;
+    for (int64_t i = 0; i < n; i++) {
+        if (exts[i] < 0 || exts[i] >= (int64_t)t.ext.size())
+            return EXT_BAD_INDEX;
+        Ext& e = t.ext[exts[i]];
+        int64_t r[RQ_N];
+        if (e.has_req) {
+            memcpy(r, e.req, sizeof(r));
+            e.has_req = false;
+        } else if (!make_request(t, e, r, &n_large)) {
+            return EXT_NO_HIT;
+        }
+        for (int f = 0; f < RQ_N; f++) out[f * n + i] = r[f];
+    }
+    return n_large;
+}
+
+// Decode one chain level: extension exts[i] takes row i of the (n, L) op
+// matrix ops, n_ops[i] ops long.  status[i]: 1 when the extension
+// finished, else 0.  With nxt, the (4, B) request rows (r_start, r_size,
+// q_start, q_size) the device computed the next level under, each
+// extension still going computes its next request and compares it with
+// column rows[i] of nxt and rev[rows[i]] (the level's direction), and a
+// square tile_size tile: equal in every field, status 2 and a hit; else a
+// miss, and the request is kept for ext_requests.  counts += (hits,
+// misses, large tiles).  Returns 0 or a fault code.
+int64_t ext_decode_level(void* h, const int64_t* exts, int64_t n,
+                         const uint8_t* ops, int64_t L,
+                         const int32_t* n_ops, const int64_t* nxt,
+                         int64_t B, const int64_t* rows, const int64_t* rev,
+                         int8_t* status, int64_t* counts) {
+    ExtTable& t = *static_cast<ExtTable*>(h);
+    for (int64_t i = 0; i < n; i++) {
+        if (exts[i] < 0 || exts[i] >= (int64_t)t.ext.size()
+                || (nxt && (rows[i] < 0 || rows[i] >= B)))
+            return EXT_BAD_INDEX;
+        if (n_ops[i] < 0 || n_ops[i] > L) return EXT_BAD_OPS;
+        Ext& e = t.ext[exts[i]];
+        int64_t done = decode_tile(t, e, ops + i * L, n_ops[i]);
+        if (done < 0) return done;
+        status[i] = (int8_t)done;
+        if (done || !nxt) continue;
+        int64_t r[RQ_N];
+        if (!make_request(t, e, r, &counts[2])) return EXT_NO_HIT;
+        int64_t b = rows[i];
+        if (r[RQ_RT] == t.tile && r[RQ_QT] == t.tile && r[RQ_REV] == rev[b]
+                && r[RQ_R_START] == nxt[b] && r[RQ_R_SIZE] == nxt[B + b]
+                && r[RQ_Q_START] == nxt[2 * B + b]
+                && r[RQ_Q_SIZE] == nxt[3 * B + b]) {
+            status[i] = 2;
+            counts[0]++;
+        } else {
+            counts[1]++;
+            memcpy(e.req, r, sizeof(r));
+            e.has_req = true;
+        }
+    }
+    return 0;
+}
+
+// Every extension's state into out (EXT_NF, n), rows in this order
+// (native.ExtensionTable.STATE): the position, the four offsets, the
+// three flags, the tiles, the hits left on each side, finished, emitted
+// and the aligned columns held.
+enum { EXT_NF = 15 };
+
+void ext_state(void* h, int64_t* out) {
+    const ExtTable& t = *static_cast<ExtTable*>(h);
+    int64_t n = (int64_t)t.ext.size();
+    for (int64_t i = 0; i < n; i++) {
+        const Ext& e = t.ext[i];
+        const int64_t v[EXT_NF] = {
+            e.curr_ref, e.curr_q, e.ref_start_off, e.q_start_off,
+            e.ref_end_off, e.q_end_off, e.left_done, e.right_done,
+            e.used_large, e.tiles, e.lend - e.lbeg, e.rend - e.rbeg,
+            e.finished, e.emitted,
+            (int64_t)(e.left_ref.size() + e.right_ref.size())};
+        for (int f = 0; f < EXT_NF; f++) out[f * n + i] = v[f];
+    }
+}
+
+// The aligned rows of extensions exts[] (_emit): extension i's columns go
+// to [offsets[i], offsets[i + 1]) of ref_out and q_out, its left side
+// reversed then its right side, and scores[i] is their score_alignment.
+// offsets come from ext_state's columns row.  Returns 0 or a fault code.
+int64_t ext_emit(void* h, const int64_t* exts, int64_t n,
+                 const int64_t* offsets, uint8_t* ref_out, uint8_t* q_out,
+                 int64_t* scores) {
+    const ExtTable& t = *static_cast<ExtTable*>(h);
+    for (int64_t i = 0; i < n; i++) {
+        if (exts[i] < 0 || exts[i] >= (int64_t)t.ext.size())
+            return EXT_BAD_INDEX;
+        const Ext& e = t.ext[exts[i]];
+        int64_t nl = (int64_t)e.left_ref.size();
+        int64_t cols = nl + (int64_t)e.right_ref.size();
+        if (offsets[i + 1] - offsets[i] != cols) return EXT_BAD_INDEX;
+        uint8_t* r = ref_out + offsets[i];
+        uint8_t* q = q_out + offsets[i];
+        std::reverse_copy(e.left_ref.begin(), e.left_ref.end(), r);
+        std::reverse_copy(e.left_q.begin(), e.left_q.end(), q);
+        std::copy(e.right_ref.begin(), e.right_ref.end(), r + nl);
+        std::copy(e.right_q.begin(), e.right_q.end(), q + nl);
+        scores[i] = score_alignment(r, q, cols, t.sub5, t.gap_open,
+                                    t.gap_extend, t.long_gap_open,
+                                    t.long_gap_extend);
+    }
+    return 0;
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
 """ctypes bindings for the port's host library (csrc/darwin_native.cpp):
-FASTA scanning, anchor chaining, the batched tile decode, the walker's
-record expansion and the rescore of an emitted alignment.
+FASTA scanning, anchor chaining, the walker's record expansion, the
+rescore of an emitted alignment and the extension table (a read batch's
+extensions and their tile state machine, ``ExtensionTable``).
 
 The port's own copy of ``darwin_tpu/native.py``.  The library is compiled
 on demand with g++ (plain C ABI) into ``darwin_tpu_torch/_build/``, named
@@ -9,7 +10,8 @@ place with ``os.replace`` so that concurrent processes never load a
 half-written file.  Every entry point returns None when the toolchain or
 the library is unavailable (``available()``): FASTA reading then takes its
 Python path, chaining and decoding raise with ``unavailable_reason()``,
-which keeps the failed step's own message (g++'s errors, the loader's).
+which keeps the failed step's own message (g++'s errors, the loader's);
+so does ``ExtensionTable``.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ BUILD_INFO = {"seconds": 0.0}
 
 _i64 = ctypes.c_int64
 _p8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+_pi8 = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
 _p32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
 _p64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
 _pu64 = np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS")
@@ -86,11 +89,21 @@ def _load():
             _p64, _p32, _p32, _i64, _p32, _p32, _p64, _i64, _i64,
             _pu64, _p64, _pu64, _p64, _p32, _p64, _i64]
         lib.chain_anchors.restype = _i64
-        lib.decode_ops_batch.argtypes = [
-            _p8, _i64, _p64, _i64, _p64, _p64, _p32, _p8, _p64, _p8,
-            _p64, _p64, _p64, _p64, _p64, _p8, _p8, _p64, _p64, _p64,
-            _p32, _p32]
-        lib.decode_ops_batch.restype = None
+        _vp = ctypes.c_void_p
+        lib.ext_table_new.argtypes = [_i64, _p64, _pu64, _p64, _pu64, _p64,
+                                      _p8, _p8, _p64, _p64]
+        lib.ext_table_new.restype = _vp
+        lib.ext_table_free.argtypes = [_vp]
+        lib.ext_table_free.restype = None
+        lib.ext_requests.argtypes = [_vp, _p64, _i64, _p64]
+        lib.ext_requests.restype = _i64
+        lib.ext_decode_level.argtypes = [_vp, _p64, _i64, _p8, _i64, _p32,
+                                         _vp, _i64, _vp, _vp, _pi8, _p64]
+        lib.ext_decode_level.restype = _i64
+        lib.ext_state.argtypes = [_vp, _p64]
+        lib.ext_state.restype = None
+        lib.ext_emit.argtypes = [_vp, _p64, _i64, _p64, _p8, _p8, _p64]
+        lib.ext_emit.restype = _i64
         lib.expand_records.argtypes = [ctypes.c_void_p, _i64, _i64, _i64,
                                        _i64, _i64, _p8, _p32]
         lib.expand_records.restype = None
@@ -148,41 +161,6 @@ def chain_anchors_native(hits_bin, hits_off, hits_pos, n_hits,
         cap = int(need) + 64
 
 
-def decode_ops_batch_native(ops2d, sel, n_ops, stop_thr, direction,
-                            bases, ref_start_addr, qconcat, q_off,
-                            curr_ref, curr_q, ref_len, q_len):
-    """Batched decode_ops over rows sel of the (B, L) op matrix.  All
-    per-tile vectors are aligned with sel (length nsel).  Returns
-    (out_ref (nsel, L), out_q (nsel, L), cols, new_ref, new_q, rb, qb)
-    or None if the native library is unavailable."""
-    lib = _load()
-    if lib is None:
-        return None
-    ops2d = np.ascontiguousarray(ops2d, np.uint8)
-    nsel = len(sel)
-    L = ops2d.shape[1]
-    out_ref = np.empty((nsel, max(L, 1)), np.uint8)
-    out_q = np.empty((nsel, max(L, 1)), np.uint8)
-    cols = np.empty(nsel, np.int64)
-    new_ref = np.empty(nsel, np.int64)
-    new_q = np.empty(nsel, np.int64)
-    rb = np.empty(nsel, np.int32)
-    qb = np.empty(nsel, np.int32)
-    lib.decode_ops_batch(
-        ops2d, L, np.ascontiguousarray(sel, np.int64), nsel,
-        np.ascontiguousarray(n_ops, np.int64),
-        np.ascontiguousarray(stop_thr, np.int64),
-        np.ascontiguousarray(direction, np.int32),
-        bases, np.ascontiguousarray(ref_start_addr, np.int64),
-        qconcat, np.ascontiguousarray(q_off, np.int64),
-        np.ascontiguousarray(curr_ref, np.int64),
-        np.ascontiguousarray(curr_q, np.int64),
-        np.ascontiguousarray(ref_len, np.int64),
-        np.ascontiguousarray(q_len, np.int64),
-        out_ref, out_q, cols, new_ref, new_q, rb, qb)
-    return out_ref, out_q, cols, new_ref, new_q, rb, qb
-
-
 def expand_records_native(rec, n_valid: int, L: int):
     """(RT, B) records -> (ops (n, L) uint8, n_ops (n,) int32) of the
     first n = min(n_valid, B) lanes, or None if the library is
@@ -219,6 +197,161 @@ def score_alignment_native(ref, q, sub5, gap_open: int, gap_extend: int,
     return int(lib.score_alignment(
         ref, q, len(ref), np.ascontiguousarray(sub5, np.int64).reshape(25),
         gap_open, gap_extend, long_gap_open, long_gap_extend))
+
+
+# ext_table_* fault codes (csrc/darwin_native.cpp)
+_EXT_FAULTS = {-1: (IndexError, "an extension or a row out of range"),
+               -2: (ValueError, "a tile's op count outside its op row"),
+               -3: (IndexError, "a large tile asked for with no chained "
+                                "hit left")}
+
+
+def _ext_check(rc: int) -> int:
+    if rc < 0:
+        exc, msg = _EXT_FAULTS[rc]
+        raise exc(f"extension table: {msg}")
+    return rc
+
+
+class ExtensionTable:
+    """Every extension of one read batch with its tile state machine, in
+    the host library (``ext_table_*``): darwin_tpu's ``_Ext`` field for
+    field (darwin_tpu/pipeline/extend.py:115-370), one object for the
+    batch, so that a chain level's decode, hit popping, termination and
+    next request are one call.  Extensions are numbered 0..n-1 in build
+    order.  A table is used from one thread; tables share nothing.
+
+    fields: (7, n) int64 rows strand_rc (1 for '-'), ref_start_addr,
+    ref_len, q_len, q_code_start, curr_ref, curr_q; left_hits /
+    right_hits: per extension its chained hits (uint64, left ascending,
+    right descending); bases / q_ascii: the genome with its margin and the
+    read batch's query buffer, held here for the table's life; cfg: the
+    tile sizes, ``do_overlap`` and the scoring.  Raises RuntimeError when
+    the library is unavailable."""
+
+    _h = None
+
+    STATE = ("curr_ref", "curr_q", "ref_start_off", "q_start_off",
+             "ref_end_off", "q_end_off", "left_done", "right_done",
+             "used_large", "tiles", "left_hits", "right_hits", "finished",
+             "emitted", "columns")
+
+    def __init__(self, fields, left_hits, right_hits, bases, q_ascii, cfg):
+        lib = _load()
+        if lib is None:
+            raise RuntimeError("extension table: " + unavailable_reason())
+        self._lib = lib
+        fields = np.ascontiguousarray(fields, np.int64)
+        n = fields.shape[1]
+        if fields.shape != (7, n) or len(left_hits) != n \
+                or len(right_hits) != n:
+            raise ValueError(f"extension table: fields {fields.shape}, "
+                             f"{len(left_hits)} / {len(right_hits)} hit "
+                             "lists")
+        hits, offs = [], []
+        for lists in (left_hits, right_hits):
+            off = np.zeros(n + 1, np.int64)
+            off[1:] = np.cumsum([len(h) for h in lists])
+            hits.append(np.concatenate(
+                [np.asarray(h, np.uint64) for h in lists] or
+                [np.zeros(0, np.uint64)]))
+            offs.append(off)
+        self._bases = np.ascontiguousarray(bases, np.uint8)
+        self._q = np.ascontiguousarray(q_ascii, np.uint8)
+        params = np.array([cfg.tile_size, cfg.tile_overlap,
+                           cfg.large_tile_long, cfg.large_tile_short,
+                           int(cfg.do_overlap), cfg.gap_open, cfg.gap_extend,
+                           cfg.long_gap_open, cfg.long_gap_extend], np.int64)
+        sub5 = np.ascontiguousarray(cfg.sub_matrix_5x5, np.int64).reshape(25)
+        self.n = n
+        self._h = lib.ext_table_new(n, fields, hits[0], offs[0], hits[1],
+                                    offs[1], self._bases, self._q, params,
+                                    sub5)
+        if not self._h:
+            raise MemoryError(f"extension table of {n} extensions")
+
+    def close(self):
+        if self._h:
+            self._lib.ext_table_free(self._h)
+            self._h = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def __del__(self):
+        self.close()
+
+    def requests(self, exts):
+        """The next tile's request of each extension in ``exts``: (7,
+        len(exts)) int64 rows r_start, r_size, q_start (in the query
+        buffer), q_size, rev (1 for the right side), rt, qt; and the large
+        tiles counted.  A lane refused at a chain level gets the request it
+        was refused with."""
+        exts = np.ascontiguousarray(exts, np.int64)
+        out = np.empty((7, len(exts)), np.int64)
+        n_large = _ext_check(self._lib.ext_requests(self._h, exts,
+                                                    len(exts), out))
+        return out, n_large
+
+    def decode_level(self, exts, ops, n_ops, nxt=None, rows=None, rev=None):
+        """Decode one tile of each extension in ``exts``: op row i of the
+        (len(exts), L) matrix ``ops``, ``n_ops[i]`` ops.  With ``nxt``, the
+        next chain level's device requests (four (B,) rows r_start, r_size,
+        q_start, q_size), every extension still going is accepted for it
+        when its own next request equals column ``rows[i]`` of ``nxt``,
+        with direction ``rev[rows[i]]`` and a square tile_size tile.
+        Returns (status (len(exts),) int8: 0 going on, 1 finished, 2
+        accepted; hits, misses, large tiles counted)."""
+        exts = np.ascontiguousarray(exts, np.int64)
+        ops = np.ascontiguousarray(ops, np.uint8)
+        n_ops = np.ascontiguousarray(n_ops, np.int32)
+        n = len(exts)
+        if ops.ndim != 2 or ops.shape[0] < n or n_ops.shape[0] < n:
+            raise ValueError(f"extension table: {n} extensions, ops "
+                             f"{ops.shape}, n_ops {n_ops.shape}")
+        status = np.empty(n, np.int8)
+        counts = np.zeros(3, np.int64)
+        B, p_nxt, p_rows, p_rev = 0, None, None, None
+        if nxt is not None:
+            nxt = np.ascontiguousarray(np.stack(nxt), np.int64)
+            rows = np.ascontiguousarray(rows, np.int64)
+            rev = np.ascontiguousarray(rev, np.int64)
+            B = nxt.shape[1]
+            if nxt.shape != (4, B) or rows.shape != (n,) or rev.shape != (B,):
+                raise ValueError(f"extension table: next requests "
+                                 f"{nxt.shape}, rows {rows.shape}, rev "
+                                 f"{rev.shape}")
+            p_nxt, p_rows, p_rev = (a.ctypes.data for a in (nxt, rows, rev))
+        _ext_check(self._lib.ext_decode_level(
+            self._h, exts, n, ops, ops.shape[1], n_ops, p_nxt, B, p_rows,
+            p_rev, status, counts))
+        return status, int(counts[0]), int(counts[1]), int(counts[2])
+
+    def state(self) -> dict:
+        """Every extension's state: name -> (n,) int64, names ``STATE``
+        (``left_hits`` / ``right_hits`` the hits left, ``columns`` the
+        aligned columns held)."""
+        out = np.empty((len(self.STATE), self.n), np.int64)
+        self._lib.ext_state(self._h, out)
+        return dict(zip(self.STATE, out))
+
+    def emit(self, exts, columns):
+        """The aligned rows of the extensions ``exts``, ``columns[i]``
+        long each (``state()["columns"]``): (ref, q, offsets, scores), the
+        rows of extension i at [offsets[i], offsets[i + 1]) of ref and q
+        and their ``score_alignment`` in scores[i]."""
+        exts = np.ascontiguousarray(exts, np.int64)
+        offsets = np.zeros(len(exts) + 1, np.int64)
+        np.cumsum(columns, out=offsets[1:])
+        ref = np.empty(offsets[-1], np.uint8)
+        q = np.empty(offsets[-1], np.uint8)
+        scores = np.empty(len(exts), np.int64)
+        _ext_check(self._lib.ext_emit(self._h, exts, len(exts), offsets, ref,
+                                      q, scores))
+        return ref, q, offsets, scores
 
 
 def fasta_scan_native(data: bytes):

@@ -62,10 +62,13 @@ def new_counters():
         "num_active_tiles": 0,
         "num_large_tiles": 0,
         # non-reference telemetry, printed after the counter block:
-        # speculative-chain acceptance and extension rounds
+        # speculative-chain acceptance, extension rounds, and the tiles
+        # the extension table decoded in how many calls
         "num_spec_hits": 0,
         "num_spec_misses": 0,
         "num_extend_rounds": 0,
+        "num_decoded_tiles": 0,
+        "num_decode_calls": 0,
         "num_queried_buckets": 0,
         "num_capped_buckets": 0,
         # overlap mode: the fates of the extended alignments in the MHAP
@@ -449,8 +452,9 @@ def run(ref_path: str, reads_path: str, do_overlap: bool,
     rate = f"{h / (h + m):.3f}" if h + m else "n/a"
     print(f"[darwin_tpu_torch] device: {dev}", file=err)
     print(f"[darwin_tpu_torch] #spec hits: {h}  #spec misses: {m}  "
-          f"hit rate: {rate}  #extend rounds: {c['num_extend_rounds']}",
-          file=err)
+          f"hit rate: {rate}  #extend rounds: {c['num_extend_rounds']}  "
+          f"#decoded tiles: {c['num_decoded_tiles']}  #decode calls: "
+          f"{c['num_decode_calls']}", file=err)
     print(f"[darwin_tpu_torch] #queried buckets: {c['num_queried_buckets']}"
           f"  #occupancy-capped: {c['num_capped_buckets']}", file=err)
     if do_overlap:

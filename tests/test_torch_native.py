@@ -4,7 +4,9 @@ AlignmentScore, and every entry point from many threads at once.
 encode_seq, revcomp and score_alignment, whose lookup tables are built on
 the first call, and expand_records give every thread the single-thread
 result even when all threads make that first call together (two read
-batches in flight call the library from two threads)."""
+batches in flight call the library from two threads); extension tables
+built, decoded and emitted on many threads at once give each thread the
+single-thread result."""
 
 import ctypes
 import sys
@@ -20,6 +22,8 @@ from darwin_tpu_torch.config import Config
 from darwin_tpu_torch.ops import gact
 from darwin_tpu_torch.pipeline.extend import alignment_score
 from tests.test_pipeline import _alignment_score_literal
+from tests.test_torch_extend_native import _configs as _tile_configs
+from tests.test_torch_extend_native import _extensions, _table, _world
 
 THREADS = 16
 
@@ -235,3 +239,73 @@ def test_extension_entry_points_from_many_threads(tmp_path):
         np.testing.assert_array_equal(got[0], want[0])
         np.testing.assert_array_equal(got[1], want[1])
         assert got[2] == want[2]
+
+
+def _table_run(seed, start=None):
+    """One extension table through random op streams and device requests
+    to its end: the state after every level, the emitted rows and their
+    scores.  ``start``: a barrier to wait at before the build."""
+    rng = np.random.default_rng(seed)
+    cfg, _ = _tile_configs(seed % 2 == 1)
+    bases, q_ascii, chroms, offsets = _world(rng)
+    exts = _extensions(rng, chroms, offsets, 40)
+    states = []
+    if start is not None:
+        start.wait(timeout=60)
+    with _table(exts, bases, q_ascii, cfg) as table:
+        going = np.arange(len(exts))
+        while len(going):
+            req, _ = table.requests(going)
+            L = 2 * int(req[5:].max())
+            n_ops = rng.integers(0, L + 1, len(going)).astype(np.int32)
+            ops = rng.choice(np.array([1, 2, 3], np.uint8),
+                             (len(going), L), p=[0.15, 0.15, 0.7])
+            nxt = list(req[:4] + rng.integers(0, 2, req[:4].shape))
+            status, h, m, n_large = table.decode_level(
+                going, ops, n_ops, nxt, np.arange(len(going)),
+                req[4])
+            states.append((status, h, m, n_large,
+                           np.stack(list(table.state().values()))))
+            going = going[status != 1]
+        st = table.state()
+        emitted = np.flatnonzero(st["emitted"])
+        emit = table.emit(emitted, st["columns"][emitted])
+    return states, emitted, emit
+
+
+def test_extension_tables_from_many_threads():
+    """Extension tables built, decoded level by level (requests, the
+    decode with its acceptance) and emitted on many threads at once (two
+    read batches in flight use two tables from two threads), their calls
+    interleaved, give each thread the single-thread result."""
+    assert native.available(), native.unavailable_reason()
+    want = [_table_run(seed) for seed in range(2)]
+    start = threading.Barrier(THREADS)
+    results = [None] * THREADS
+
+    def worker(i):
+        results[i] = _table_run(i % 2, start)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(THREADS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+            assert not t.is_alive()
+    finally:
+        sys.setswitchinterval(interval)
+    for i, got in enumerate(results):
+        states, emitted, emit = want[i % 2]
+        assert len(got[0]) == len(states) > 3
+        for g, w in zip(got[0], states):
+            np.testing.assert_array_equal(g[0], w[0])
+            assert g[1:4] == w[1:4]
+            np.testing.assert_array_equal(g[4], w[4])
+        np.testing.assert_array_equal(got[1], emitted)
+        assert len(emitted) > 0
+        for g, w in zip(got[2], emit):
+            np.testing.assert_array_equal(g, w)

@@ -98,6 +98,10 @@ def test_traced_run_records_every_span(traced):
     by_thread = {}
     for n, th, b, *_ in spans:
         by_thread.setdefault(n in MAIN, set()).add(th)
+        if n == "gc" and th == 0:
+            # the collector can run on run()'s thread, which serves no batch
+            assert b is None
+            continue
         assert b in (range(4) if n == "run_parse" else range(3)), (n, b)
     assert by_thread[True] == {0} and by_thread[False] >= {1, 2}
     assert {b for n, _, b, *_ in spans if n in STAGES} == {0, 1, 2}

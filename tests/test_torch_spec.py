@@ -51,8 +51,9 @@ def _block(err: str):
 
 def _spec_line(err: str):
     """(hits, misses, rounds) from the port's spec line."""
-    ln = next(x for x in err.splitlines() if "#spec hits" in x).split()
-    return int(ln[3]), int(ln[6]), int(ln[-1])
+    ln = next(x for x in err.splitlines() if "#spec hits" in x)
+    return tuple(int(re.search(f"#{k}: (\\d+)", ln).group(1))
+                 for k in ("spec hits", "spec misses", "extend rounds"))
 
 
 # ------------------------------------------------------ (a) the next tile
