@@ -903,14 +903,13 @@ def _run_cli(phase, argv, tmp, n_reads, smi, into=None, **run_kw):
     host.  Returns (stdout, counter block, launches, chains); ``into`` (a
     dict) also gets run()'s stats_out and the stderr text."""
     from darwin_tpu_torch import cli
-    from darwin_tpu_torch.ops import dispatch, gact_cuda
+    from darwin_tpu_torch.ops import gact_cuda
     out, err = io.StringIO(), io.StringIO()
     stats = {}
     cwd = os.getcwd()
     os.chdir(tmp)
     try:
         gact_cuda.reset_launches()
-        dispatch.reset_ext_stats()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out), \
                 contextlib.redirect_stderr(err):
@@ -919,7 +918,6 @@ def _run_cli(phase, argv, tmp, n_reads, smi, into=None, **run_kw):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(gact_cuda.LAUNCHES)
-        ext = dict(dispatch.EXT_STATS)
     finally:
         os.chdir(cwd)
     check(rc == 0, f"cli exited {rc}")
@@ -946,9 +944,6 @@ def _run_cli(phase, argv, tmp, n_reads, smi, into=None, **run_kw):
     say(phase, f"speculative chains: {hits} hits, {misses} misses, hit "
                f"rate {hits / max(hits + misses, 1):.4f}; {rounds} "
                f"extension rounds")
-    say(phase, f"extension dispatches: {ext['dispatches']}, "
-               f"{ext['tiles']} tiles computed ({ext['spec_tiles']} "
-               f"speculative), {ext['cells']} cells")
     say(phase, "stage seconds (stats_out, all batches): " + ", ".join(
         f"{k}={v:.3f}" for k, v in sorted(stats["stage_seconds"].items(),
                                           key=lambda kv: -kv[1])))
@@ -1706,20 +1701,16 @@ def _run_api(phase, ref, reads, overlap, n_reads, smi, **run_kw):
     """run() in-process at its defaults on the card, every launch count set
     to 0 just before and read just after.  Returns (output, counter block,
     launches, stats_out, stderr)."""
-    from darwin_tpu_torch.ops import dispatch, gact_cuda
+    from darwin_tpu_torch.ops import gact_cuda
     from darwin_tpu_torch.pipeline.align import run
     out, err, stats = io.StringIO(), io.StringIO(), {}
     gact_cuda.reset_launches()
-    dispatch.reset_ext_stats()
     run(ref, reads, overlap, out=out, err=err, device="cuda",
         stats_out=stats, **run_kw)
     for d in range(torch.cuda.device_count()):
         torch.cuda.synchronize(d)
     launches = dict(gact_cuda.LAUNCHES)
-    ext = dict(dispatch.EXT_STATS)
-    say(phase, f"kernel launches in this run: {launches}; extension "
-               f"dispatches {ext['dispatches']}, {ext['tiles']} tiles "
-               f"[{smi}]")
+    say(phase, f"kernel launches in this run: {launches} [{smi}]")
     say(phase, "stage seconds: " + ", ".join(
         f"{k}={v:.3f}" for k, v in sorted(stats["stage_seconds"].items(),
                                           key=lambda kv: -kv[1])[:8]))

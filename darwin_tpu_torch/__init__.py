@@ -22,7 +22,7 @@ Layout:
                   and run()
   parallel      — meshes (tile batches split over devices), the seed table
                   sharded by hash range, multi-host runs
-  tools         — the int32 op-rate probe, the align-phase profiler
+  tools         — the int32 op-rate probe
   cli           — ``python -m darwin_tpu_torch.cli REF READS 0|1``
 """
 

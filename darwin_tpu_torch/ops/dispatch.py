@@ -1,8 +1,10 @@
 """Device dispatchers: tile gather from resident code buffers + tile DP
 (+ traceback).  Counterpart of ``darwin_tpu/ops/dispatch.py``'s
 ``gather_tiles`` (``ops/gact.gather_tiles``, part of the ``gact_next``
-kernel's twin), ``first_tile_scores``, ``extend_tiles_async`` and
-``extend_tiles_spec_async`` (speculative K-tile chains).
+kernel's twin), ``first_tile_scores``, and its two extension dispatches
+as one: ``extend_tiles_async`` takes a chain of K tiles, K = 1 being
+darwin_tpu's one-tile ``extend_tiles_async`` and K > 1 its speculative
+``extend_tiles_spec_async``.
 
 The genome and the read batch live on the device as 1-byte 5-letter codes;
 tiles are gathered by index arithmetic (a reversed tile is a reversed index
@@ -10,7 +12,7 @@ range) with int64 indices clamped into the buffer — lanes whose indices
 fall outside hold garbage codes that the DP's length masking never reads
 (darwin_tpu relies on uint32 wraparound for the same thing; an
 out-of-range CUDA index would be a device assert).  Requests go up as one
-(4|5, B) int64 transfer; results come back as one packed int32 transfer,
+(4|11, B) int64 transfer; results come back as one packed int32 transfer,
 fetched only in ``resolve()``.
 
 darwin_tpu's TPU transport workarounds are not carried over, and the
@@ -21,8 +23,6 @@ traceback kernel never spills).
 """
 
 from __future__ import annotations
-
-import threading
 
 import numpy as np
 import torch
@@ -38,41 +38,6 @@ from darwin_tpu_torch.utils.turns import fetch
 # depend on it: a level is accepted only while its device-computed request
 # equals the host's exact one.
 SPEC_K = 12
-
-# extension-dispatch telemetry for this process: dispatches, tiles and DP
-# cells (tiles x ref x query) computed — a speculative dispatch counts all
-# B x K tiles of its chain, accepted or not, and its levels 2..K again as
-# ``spec_tiles``.  A mesh dispatch (parallel/shard.py) counts once, its
-# shards' tiles and cells summed.  Two batches in flight update it from
-# two threads, under _stats_lock.  reset_ext_stats() zeroes it.  Device
-# time is the profiler's, per kernel.
-EXT_STATS = {"dispatches": 0, "tiles": 0, "spec_tiles": 0, "cells": 0}
-_stats_lock = threading.Lock()
-
-
-def reset_ext_stats():
-    with _stats_lock:
-        EXT_STATS.update(dispatches=0, tiles=0, spec_tiles=0, cells=0)
-
-
-def count_dispatch(works):
-    """Count one dispatch made of the shards' ``works``, each (tiles,
-    spec_tiles, cells) as the enqueue functions below return it; call
-    after every shard's resolve()."""
-    with _stats_lock:
-        EXT_STATS["dispatches"] += 1
-        EXT_STATS["tiles"] += sum(w[0] for w in works)
-        EXT_STATS["spec_tiles"] += sum(w[1] for w in works)
-        EXT_STATS["cells"] += sum(w[2] for w in works)
-
-
-def _counted(resolve, work):
-    """The resolve() of a one-device dispatch, which counts it."""
-    def counted():
-        res = resolve()
-        count_dispatch([work])
-        return res
-    return counted
 
 
 def _upload(device, *rows):
@@ -97,43 +62,6 @@ def first_tile_scores(ref_codes, query_codes, r_start, r_size, q_start,
                           res["ref_max_pos"]])
     return {"score": packed[0], "query_max_pos": packed[1],
             "ref_max_pos": packed[2], "packed": packed}
-
-
-def extend_tiles_async(ref_codes, query_codes, r_start, r_size, q_start,
-                       q_size, rev, params, qt: int, rt: int, max_tb: int):
-    """Extension-stage dispatch (start-to-end tiles with traceback), split
-    into enqueue + resolve: the gather, DP and traceback are enqueued now;
-    the returned zero-arg ``resolve()`` fetches the packed records + stats
-    (the one host sync) and expands the records into op arrays.
-
-    resolve() -> {ops (B, L) uint8, n_ops, q_steps, r_steps, score,
-    query_max_pos, ref_max_pos}, L = min(qt + rt, 2 * max_tb)."""
-    return _counted(*enqueue_extend(
-        ref_codes, query_codes, r_start, r_size, q_start, q_size, rev,
-        params, qt, rt, max_tb))
-
-
-def enqueue_extend(ref_codes, query_codes, r_start, r_size, q_start,
-                   q_size, rev, params, qt: int, rt: int, max_tb: int):
-    """extend_tiles_async's enqueue, uncounted: (resolve, work), ``work``
-    for ``count_dispatch``."""
-    dev = ref_codes.device
-    req = _upload(dev, r_start, r_size, q_start, q_size, rev)
-    B = req.shape[1]
-    qtile, rtile = gather_tiles(ref_codes, query_codes, req[0], req[1],
-                                req[2], req[3], req[4] != 0, qt, rt)
-    se = torch.ones(B, dtype=torch.bool, device=dev)
-    rec, stats = _extend_tile(qtile, rtile, tile_sizes(req[3], req[1]), se,
-                              params, max_tb)
-    packed = torch.cat([rec, torch.stack(stats)])
-    L = min(qt + rt, 2 * max_tb)
-
-    def resolve():
-        p = fetch(packed)
-        R = p.shape[0] - 5
-        ops, n_ops = gact.expand_records(p[:R], B, L)
-        return {"ops": ops, "n_ops": n_ops, **_stats_dict(p[R:])}
-    return resolve, (B, 0, B * qt * rt)
 
 
 def _extend_tile(qtile, rtile, sizes, se, params, max_tb):
@@ -171,41 +99,32 @@ class SpecLevels:
                                    self._L)
 
 
-def extend_tiles_spec_async(ref_codes, query_codes, r_start, r_size,
-                            q_start, q_size, rev, chrom_start, chrom_len,
-                            q_buf_start, q_len, params, qt: int, rt: int,
-                            max_tb: int, stop_thr: int, K: int = SPEC_K):
-    """Speculative K-tile extension dispatch, square tiles (qt == rt)
-    only (darwin_tpu/ops/dispatch.py:478-578).  Tile 1 is the request;
-    each later level's request is computed on the device by ``next_tiles``
-    from the walk of the level before, as the host would compute it if the
-    extension took that walk's cutoff advance and did not terminate.  Tile
-    1 is gathered here; each later level's tiles and sizes come from the
-    same ``next_tiles`` launch as its request, so a level is three kernels
-    (DP with trace, walk, next tile) and the walk's zeroed records.  All K
-    levels are enqueued with no host sync; resolve() fetches the K record
-    matrices, tile 1's stats and the K-1 speculative requests in one
-    transfer.
+def extend_tiles_async(ref_codes, query_codes, r_start, r_size, q_start,
+                       q_size, rev, chrom_start, chrom_len, q_buf_start,
+                       q_len, params, qt: int, rt: int, max_tb: int,
+                       stop_thr: int, K: int):
+    """Extension dispatch: a chain of K tiles per lane, split into enqueue +
+    resolve (darwin_tpu/ops/dispatch.py:478-578, :629-698).  Tile 1 is the
+    request, of any shape at K = 1; a chain of K > 1 takes square tiles (qt ==
+    rt) only.  Each later level's request is computed on the device by
+    ``next_tiles`` from the walk of the level before, as the host would
+    compute it if the extension took that walk's cutoff advance and did not
+    terminate.  Tile 1 is gathered here; each later level's tiles and sizes
+    come from the same ``next_tiles`` launch as its request, so a level is
+    three kernels (DP with trace, walk, next tile) and the walk's zeroed
+    records.  All K levels are enqueued with no host sync; the returned
+    zero-arg resolve() fetches the K record matrices, tile 1's stats and the
+    K-1 speculative requests in one transfer (the one host sync) and expands
+    tile 1's records into op arrays.
 
-    chrom_start / chrom_len: each lane's chromosome (absolute start,
-    padded length); q_buf_start / q_len: its read's start in the query
-    buffer and its length.  resolve() -> {ops, n_ops and tile 1's stats as
-    extend_tiles_async's, ``spec_req``: per level 2..K a tuple of (B,)
-    int64 (r_start, r_size, q_start, q_size) — the request the level was
-    computed under — and ``ops_spec``: a SpecLevels of those levels'
-    walks}."""
-    return _counted(*enqueue_spec(
-        ref_codes, query_codes, r_start, r_size, q_start, q_size, rev,
-        chrom_start, chrom_len, q_buf_start, q_len, params, qt, rt, max_tb,
-        stop_thr, K))
-
-
-def enqueue_spec(ref_codes, query_codes, r_start, r_size, q_start, q_size,
-                 rev, chrom_start, chrom_len, q_buf_start, q_len, params,
-                 qt: int, rt: int, max_tb: int, stop_thr: int, K: int):
-    """extend_tiles_spec_async's enqueue, uncounted: (resolve, work),
-    ``work`` for ``count_dispatch``."""
-    if qt != rt:
+    chrom_start / chrom_len: each lane's chromosome (absolute start, padded
+    length); q_buf_start / q_len: its read's start in the query buffer and its
+    length.  resolve() -> {ops (B, L) uint8, n_ops, q_steps, r_steps, score,
+    query_max_pos, ref_max_pos of tile 1, L = min(qt + rt, 2 * max_tb);
+    ``spec_req``: per level 2..K a tuple of (B,) int64 (r_start, r_size,
+    q_start, q_size) — the request the level was computed under — and
+    ``ops_spec``: a SpecLevels of those levels' walks}."""
+    if K > 1 and qt != rt:
         raise ValueError(f"speculative chains take square tiles: {qt}x{rt}")
     if K < 1:
         raise ValueError(f"chain depth K must be >= 1: {K}")
@@ -261,4 +180,4 @@ def enqueue_spec(ref_codes, query_codes, r_start, r_size, q_start, q_size,
                 **_stats_dict(p[K * R:K * R + 5]),
                 "spec_req": spec_req,
                 "ops_spec": SpecLevels(p[R:K * R].reshape(K - 1, R, B), L)}
-    return resolve, (B * K, B * (K - 1), B * K * qt * rt)
+    return resolve

@@ -122,9 +122,9 @@ class _ShardLevels:
 
 
 class MeshDispatcher:
-    """The one-device dispatch functions of ``ops/dispatch.py`` with every
-    batch split over a mesh, same arguments and results (the codes may be
-    ``Replicated``).
+    """The one-device dispatches of ``ops/dispatch.py`` (the filter's first
+    tiles and the extension chains) with every batch split over a mesh,
+    same arguments and results (the codes may be ``Replicated``).
 
     Telemetry for one run: ``launches`` (per shard, kernel -> launches of
     that shard's dispatches), ``lanes`` (per shard, lanes dispatched) and
@@ -184,37 +184,16 @@ class MeshDispatcher:
                 "ref_max_pos": packed[2], "packed": packed}
 
     def extend_tiles_async(self, ref_codes, query_codes, r_start, r_size,
-                           q_start, q_size, rev, params, qt: int, rt: int,
-                           max_tb: int):
-        """``dispatch.extend_tiles_async`` over the mesh: counted as one
-        dispatch, results in lane order."""
-        shards = []
-        for i, dev, sl in self._shards(len(r_start)):
-            with self._on_shard(i, dev):
-                shards.append(dispatch.enqueue_extend(
-                    _on(ref_codes, dev), _on(query_codes, dev),
-                    r_start[sl], r_size[sl], q_start[sl], q_size[sl],
-                    rev[sl], params, qt, rt, max_tb))
-
-        def resolve():
-            parts = [r() for r, _ in shards]
-            dispatch.count_dispatch([w for _, w in shards])
-            return {k: np.concatenate([p[k] for p in parts])
-                    for k in parts[0]}
-        return resolve
-
-    def extend_tiles_spec_async(self, ref_codes, query_codes, r_start,
-                                r_size, q_start, q_size, rev, chrom_start,
-                                chrom_len, q_buf_start, q_len, params,
-                                qt: int, rt: int, max_tb: int, stop_thr: int,
-                                K: int = dispatch.SPEC_K):
-        """``dispatch.extend_tiles_spec_async`` over the mesh: each shard
-        runs its lanes' whole chains (per-shard speculation needs no
-        communication); counted as one dispatch, results in lane order."""
+                           q_start, q_size, rev, chrom_start, chrom_len,
+                           q_buf_start, q_len, params, qt: int, rt: int,
+                           max_tb: int, stop_thr: int, K: int):
+        """``dispatch.extend_tiles_async`` over the mesh: each shard runs
+        its lanes' whole chains (per-shard speculation needs no
+        communication); results in lane order."""
         shards, starts = [], []
         for i, dev, sl in self._shards(len(r_start)):
             with self._on_shard(i, dev):
-                shards.append(dispatch.enqueue_spec(
+                shards.append(dispatch.extend_tiles_async(
                     _on(ref_codes, dev), _on(query_codes, dev),
                     *(np.asarray(x)[sl] for x in (
                         r_start, r_size, q_start, q_size, rev, chrom_start,
@@ -223,8 +202,7 @@ class MeshDispatcher:
             starts.append(sl.start)
 
         def resolve():
-            parts = [r() for r, _ in shards]
-            dispatch.count_dispatch([w for _, w in shards])
+            parts = [r() for r in shards]
             out = {k: np.concatenate([p[k] for p in parts])
                    for k in ("ops", "n_ops", "q_steps", "r_steps", "score",
                              "query_max_pos", "ref_max_pos")}

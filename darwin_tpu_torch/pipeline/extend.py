@@ -6,14 +6,14 @@ Every live extension of a read batch contributes one tile per round to one
 device dispatch per tile shape.  The extensions and their per-tile state
 machine (decode, hit popping, termination, the next request) live in the
 native host library's extension table (``native.ExtensionTable``), which
-decodes a whole chain level in one call.  Standard square tiles go out as
-speculative chains of ``spec_k`` tiles (``ops/dispatch.
-extend_tiles_spec_async``; darwin_tpu/pipeline/extend.py:622-764): the
-device predicts each next tile from the walk before it, and the host
-accepts level j only while the request it computes after the exact decode
-of level j-1 equals the device's, field for field, so the output never
-depends on the prediction.  Large tiles, and every tile at ``spec_k=1``,
-go one per round (``extend_tiles_async``).  Per-extension behaviour —
+decodes a whole chain level in one call.  Every dispatch is a chain
+(``ops/dispatch.extend_tiles_async``; darwin_tpu/pipeline/extend.py:
+622-764): standard square tiles go out as speculative chains of ``spec_k``
+tiles, large tiles as chains of one.  The device predicts each next tile
+from the walk before it, and the host accepts level j only while the
+request it computes after the exact decode of level j-1 equals the
+device's, field for field, so the output never depends on the
+prediction.  Per-extension behaviour —
 including the reference's quirks listed in darwin_tpu/pipeline/extend.py:
 9-30 — and the emission order are darwin_tpu's exactly.
 
@@ -123,13 +123,14 @@ class ExtensionManager:
     The read batch is uploaded once as 1-byte ``encode5`` codes: per read
     and strand the ASCII sequence plus a 4 * tile_size 'N' margin, the
     same layout darwin_tpu's mesh path uploads.  ``spec_k``: tiles per
-    speculative chain (1: no speculation).  ``mesh_dispatch``: a
-    ``parallel.shard.MeshDispatcher`` that splits every dispatch over its
-    mesh; the read batch's codes then get one copy per device of the mesh
-    (``ref_codes_dev`` is the genome's ``Replicated``)."""
+    chain of standard tiles (1: no speculation); large tiles go as chains
+    of one.  ``mesh_dispatch``: a ``parallel.shard.MeshDispatcher`` that
+    splits every dispatch over its mesh; the read batch's codes then get
+    one copy per device of the mesh (``ref_codes_dev`` is the genome's
+    ``Replicated``)."""
 
     def __init__(self, store, reads, cfg, params, ref_codes_dev,
-                 spec_k: int = 1, stage_seconds: dict | None = None,
+                 spec_k: int, stage_seconds: dict | None = None,
                  mesh_dispatch=None):
         t0 = time.perf_counter()
         self.store = store
@@ -229,7 +230,7 @@ class ExtensionManager:
         tacc = self.stage_seconds
         n = fields.shape[1]
         # per extension: chromosome start and length, query-buffer start,
-        # read length (the speculative dispatch's lane rows)
+        # read length (the dispatch's chain rows)
         lane_rows = fields[[1, 2, 4, 3]]
         finished = np.zeros(n, bool)
         live = np.arange(min(n, cfg.extension_lanes))
@@ -252,20 +253,12 @@ class ExtensionManager:
                 exts = live[sel]
                 r_start, r_size, q_start, q_size, rev, rt, qt = req[:, sel]
                 rt, qt = int(rt[0]), int(qt[0])
-                spec = self.spec_k > 1 and rt == qt == T
                 t0 = mark(tacc, "extend_pack", t0)
-                if spec:
-                    resolve = self.dispatch.extend_tiles_spec_async(
-                        self.ref_codes_dev, self.q_codes_dev, r_start,
-                        r_size, q_start, q_size, rev, *lane_rows[:, exts],
-                        self.params, qt=qt, rt=rt, max_tb=2 * T,
-                        stop_thr=min(rt, qt) - cfg.tile_overlap,
-                        K=self.spec_k)
-                else:
-                    resolve = self.dispatch.extend_tiles_async(
-                        self.ref_codes_dev, self.q_codes_dev, r_start,
-                        r_size, q_start, q_size, rev, self.params, qt=qt,
-                        rt=rt, max_tb=2 * T)
+                resolve = self.dispatch.extend_tiles_async(
+                    self.ref_codes_dev, self.q_codes_dev, r_start, r_size,
+                    q_start, q_size, rev, *lane_rows[:, exts], self.params,
+                    qt=qt, rt=rt, max_tb=2 * T, stop_thr=T - cfg.tile_overlap,
+                    K=self.spec_k if rt == qt == T else 1)
                 rounds.append((exts, resolve, rev))
                 t0 = mark(tacc, "extend_enqueue", t0)
             mark(tacc, "extend_dispatch", t_round)
@@ -277,7 +270,7 @@ class ExtensionManager:
                 # dispatch) whose request after level j-1's exact decode
                 # equals the device's; a refused lane keeps that request
                 # for the next round
-                spec_req = res.get("spec_req", ())
+                spec_req = res["spec_req"]
                 rows = np.arange(len(exts))
                 ops, n_ops = res["ops"], res["n_ops"]
                 for j in range(len(spec_req) + 1):

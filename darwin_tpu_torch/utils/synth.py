@@ -1,8 +1,8 @@
 """Synthetic inputs for runs on the card: random genomes, reads across a
 planted deletion, the E. coli K-12-size reference-guided case, the
 overlap case, the chr21-size repeat-genome case and the GRCh38-size
-cases, without and with N gaps, that ``chip_smoke.py`` and
-``tools/profile_align.py`` align, and the generic-scoring ``params.cfg``.
+cases, without and with N gaps, that ``chip_smoke.py`` aligns, and the
+generic-scoring ``params.cfg``.
 
 Everything comes from a numpy seed; reads are simulated with
 ``utils.simulate`` and repeat genomes made by ``utils.synthgenome``

@@ -37,7 +37,8 @@ def bufs():
         parts += [seq, np.full(4 * CFG.tile_size, ord("N"), np.uint8)]
         pos += len(seq) + 4 * CFG.tile_size
     q = encode5(np.concatenate(parts))
-    return ref, q, q_at
+    chrom = store.chromosomes[0]
+    return ref, q, q_at, (chrom.start, chrom.length)
 
 
 def _requests(rng, q_at, n, qt, rt):
@@ -54,7 +55,7 @@ def _requests(rng, q_at, n, qt, rt):
 
 
 def test_gather_tiles_matches(bufs):
-    ref, q, q_at = bufs
+    ref, q, q_at, _ = bufs
     rng = np.random.default_rng(1)
     rs, rsz, qs, qsz = _requests(rng, q_at, 10, 64, 80)
     rev = np.arange(10) % 2 == 1
@@ -75,7 +76,7 @@ def test_gather_tiles_matches(bufs):
 
 
 def test_first_tile_scores_matches(bufs):
-    ref, q, q_at = bufs
+    ref, q, q_at, _ = bufs
     rng = np.random.default_rng(2)
     T = CFG.first_tile_size
     rs, rsz, qs, qsz = _requests(rng, q_at, 16, T, T)
@@ -97,21 +98,27 @@ def test_first_tile_scores_matches(bufs):
 
 @pytest.mark.parametrize("rt,qt", [(384, 384), (1984, 960)])
 def test_extend_tiles_async_matches(bufs, rt, qt):
-    ref, q, q_at = bufs
+    """A chain of one tile is darwin_tpu's one-tile extension dispatch."""
+    ref, q, q_at, (c_start, c_len) = bufs
     rng = np.random.default_rng(rt)
     n = 8 if rt == qt else 4
     rs, rsz, qs, qsz = _requests(rng, q_at, n, qt, rt)
     rev = np.arange(n) % 2 == 0
+    chain = [np.full(n, c_start), np.full(n, c_len),
+             np.array([q_at[i % len(q_at)][0] for i in range(n)]),
+             np.array([q_at[i % len(q_at)][2] for i in range(n)])]
     max_tb = 2 * CFG.tile_size
     want = jdisp.extend_tiles_async(
         jnp.asarray(ref), jnp.asarray(q), rs, rsz, qs, qsz, rev,
         jgact.make_params(CFG), qt=qt, rt=rt, max_tb=max_tb)()
     got = dispatch.extend_tiles_async(
         torch.from_numpy(ref), torch.from_numpy(q), rs, rsz, qs, qsz,
-        rev.astype(np.int64), gact.make_params(CFG), qt=qt, rt=rt,
-        max_tb=max_tb)()
+        rev.astype(np.int64), *chain, gact.make_params(CFG), qt=qt, rt=rt,
+        max_tb=max_tb, stop_thr=min(qt, rt) - CFG.tile_overlap, K=1)()
     assert set(got) == {"ops", "n_ops", "q_steps", "r_steps", "score",
-                        "query_max_pos", "ref_max_pos"}
+                        "query_max_pos", "ref_max_pos", "spec_req",
+                        "ops_spec"}
+    assert got["spec_req"] == []
     for k in ("n_ops", "q_steps", "r_steps", "score", "query_max_pos",
               "ref_max_pos"):
         np.testing.assert_array_equal(got[k], np.asarray(want[k]),

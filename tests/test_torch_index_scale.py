@@ -310,20 +310,3 @@ def test_gate_counts_scanned_positions_of_short_reads(monkeypatch):
             np.asarray(want.sorted_hashes))
         np.testing.assert_array_equal(got.positions.numpy().view(np.uint32),
                                       np.asarray(want.positions))
-
-
-def test_profile_counts_torch_ops_by_module():
-    """tools/profile_align's split of the torch work by the module of the
-    package that called it: ops on the device counted, views and
-    allocations not, each under the innermost package frame."""
-    from darwin_tpu_torch.tools.profile_align import OpsByModule
-    x = torch.randint(0, 4, (4, 256), dtype=torch.uint8)
-    with OpsByModule("cpu") as ops:
-        minimizers.kmer_hashes(x, 8)        # 41 ops and 8 slices
-        y = x.view(-1)[:10].to(torch.int64)  # one copy, two views
-        torch.empty(3)
-    assert ops.counts == {"index/minimizers.py": 41,
-                          "(no frame of the package)": 1}
-    with OpsByModule("cuda") as ops:
-        minimizers.kmer_hashes(x, 8)
-    assert ops.counts == {} and y.shape == (10,)

@@ -1,11 +1,12 @@
 """darwin_tpu_torch's meshes (parallel/shard.py) on the CPU, where a mesh
 names the one CPU device n times (darwin_tpu's tests run on 8 virtual CPU
-devices): the MeshDispatcher's three dispatches against the one-device
-ones at n = 1, 2, 3 and 8 (uneven and empty shards), the Aligner on a mesh
-of 8 against darwin_tpu's Aligner on its mesh of 8 at the default and a
-generic scoring, run() on a mesh against mesh='off' in both modes at depth
-1 and 2 and spec_k 1 and 12, and the rules of _resolve_mesh.  Tolerance:
-none — arrays equal, SAM / MHAP bytes and the counter block identical."""
+devices): the MeshDispatcher's dispatches against the one-device ones at
+n = 1, 2, 3 and 8 (uneven and empty shards) and on large tiles of both
+orientations, the Aligner on a mesh of 8 against darwin_tpu's Aligner on
+its mesh of 8 at the default and a generic scoring, run() on a mesh
+against mesh='off' in both modes at depth 1 and 2 and spec_k 1 and 12,
+and the rules of _resolve_mesh.  Tolerance: none — arrays equal, SAM /
+MHAP bytes and the counter block identical."""
 
 import io
 
@@ -37,11 +38,11 @@ def cpu_mesh(n):
     return Mesh(("cpu",) * n)
 
 
-def _requests(B, seed):
-    """Genome and read-batch codes and B square extension requests (left
-    and right, some clamped at a sequence end), as the extension manager
-    builds them: columns r_start, r_size, q_start, q_size, rev,
-    chrom_start, chrom_len, q_buf_start, q_len."""
+def _requests(B, seed, rt=T, qt=T):
+    """Genome and read-batch codes and B extension requests of rt x qt
+    tiles (left and right, some clamped at a sequence end), as the
+    extension manager builds them: columns r_start, r_size, q_start,
+    q_size, rev, chrom_start, chrom_len, q_buf_start, q_len."""
     rng = np.random.default_rng(seed)
     store = GenomeStore.from_numpy(["c"], [ACGT[rng.integers(0, 4, 6000)]])
     chrom = store.chromosomes[0]
@@ -61,11 +62,11 @@ def _requests(B, seed):
         cq = int(rng.integers(0, n)) if b > 2 else (0, n - 1, n // 2)[b]
         cr = s + cq
         if b % 2:
-            rows.append((chrom.start + cr, min(chrom.length - cr, T),
-                         qbuf + cq, min(n - cq, T), 1))
+            rows.append((chrom.start + cr, min(chrom.length - cr, rt),
+                         qbuf + cq, min(n - cq, qt), 1))
         else:
-            rows.append((chrom.start + max(cr - T + 1, 0), min(cr + 1, T),
-                         qbuf + max(cq - T + 1, 0), min(cq + 1, T), 0))
+            rows.append((chrom.start + max(cr - rt + 1, 0), min(cr + 1, rt),
+                         qbuf + max(cq - qt + 1, 0), min(cq + 1, qt), 0))
         rows[-1] += (chrom.start, chrom.length, qbuf, n)
     cols = [np.array(c, np.int64) for c in zip(*rows)]
     return (torch.from_numpy(ref), torch.from_numpy(encode5(
@@ -81,12 +82,11 @@ def _same(got, want):
 
 @pytest.mark.parametrize("n", [1, 2, 3, 8])
 def test_mesh_dispatcher_matches_one_device(n):
-    """first_tile_scores, extend_tiles_async and extend_tiles_spec_async
-    split over n shards (13 lanes: uneven blocks; 3 lanes: empty shards at
-    n = 8) return what the one-device dispatches return, lane for lane;
-    the speculative levels map lanes back to their shards in any order; a
-    mesh dispatch counts once in EXT_STATS; an empty shard dispatches
-    nothing."""
+    """first_tile_scores and extend_tiles_async at K = 1 and K = 3 split
+    over n shards (13 lanes: uneven blocks; 3 lanes: empty shards at n =
+    8) return what the one-device dispatches return, lane for lane; the
+    speculative levels map lanes back to their shards in any order; an
+    empty shard dispatches nothing."""
     params = gact.make_params(Config())
     K = 3
     for B in (13, 3):
@@ -101,19 +101,16 @@ def test_mesh_dispatcher_matches_one_device(n):
                                    rt=T)
         assert torch.equal(got["packed"], want["packed"])
 
-        args = (*cols[:5], params)
-        kw = dict(qt=T, rt=T, max_tb=2 * T)
-        _same(md.extend_tiles_async(refr, query, *args, **kw)(),
-              dispatch.extend_tiles_async(ref, query, *args, **kw)())
+        args = (*cols, params)
+        kw = dict(qt=T, rt=T, max_tb=2 * T, stop_thr=T - 16)
+        got = md.extend_tiles_async(refr, query, *args, K=1, **kw)()
+        want = dispatch.extend_tiles_async(ref, query, *args, K=1, **kw)()
+        assert got.pop("spec_req") == want.pop("spec_req") == []
+        del got["ops_spec"], want["ops_spec"]
+        _same(got, want)
 
-        sargs = (*cols, params)
-        skw = dict(kw, stop_thr=T - 16, K=K)
-        want = dispatch.extend_tiles_spec_async(ref, query, *sargs, **skw)()
-        dispatch.reset_ext_stats()
-        got = md.extend_tiles_spec_async(refr, query, *sargs, **skw)()
-        assert dispatch.EXT_STATS == {
-            "dispatches": 1, "tiles": B * K, "spec_tiles": B * (K - 1),
-            "cells": B * K * T * T}
+        want = dispatch.extend_tiles_async(ref, query, *args, K=K, **kw)()
+        got = md.extend_tiles_async(refr, query, *args, K=K, **kw)()
         spec = ("spec_req", "ops_spec")
         _same({k: v for k, v in got.items() if k not in spec},
               {k: v for k, v in want.items() if k not in spec})
@@ -127,9 +124,28 @@ def test_mesh_dispatcher_matches_one_device(n):
                                 want["ops_spec"].take(j, sel)):
                     np.testing.assert_array_equal(a, b)
         assert (want["n_ops"] > 0).all()
-        # 4 dispatches' lanes, blocks of tensor_split
+        # 3 dispatches' lanes, blocks of tensor_split
         sizes = [len(x) for x in np.array_split(np.arange(B), n)]
         assert md.lanes == [3 * s for s in sizes]
+
+
+@pytest.mark.parametrize("rt,qt", [(1984, 960), (960, 1984)])
+def test_mesh_large_tiles_match_one_device(rt, qt):
+    """A chain of one large tile, either orientation, split over 3 uneven
+    shards (5 lanes) returns what the one-device dispatch returns."""
+    params = gact.make_params(Config())
+    ref, query, cols = _requests(5, seed=rt, rt=rt, qt=qt)
+    md = MeshDispatcher(cpu_mesh(3))
+    kw = dict(qt=qt, rt=rt, max_tb=2 * Config().tile_size,
+              stop_thr=min(rt, qt) - 128, K=1)
+    got = md.extend_tiles_async(md.replicate(ref), query, *cols, params,
+                                **kw)()
+    want = dispatch.extend_tiles_async(ref, query, *cols, params, **kw)()
+    assert got.pop("spec_req") == want.pop("spec_req") == []
+    del got["ops_spec"], want["ops_spec"]
+    _same(got, want)
+    assert got["ops"].shape == (5, min(rt + qt, 4 * Config().tile_size))
+    assert (want["n_ops"] > 0).all() and md.lanes == [2, 2, 1]
 
 
 def _jstore(bases):

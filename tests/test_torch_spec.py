@@ -513,7 +513,7 @@ def test_spec_dispatch_matches_darwin_tpu(interpret):
     want = jdisp.extend_tiles_spec_async(
         jnp.asarray(ref), jnp.asarray(query), *cols[:4],
         cols[4].astype(bool), *cols[5:], jgact.make_params(JConfig()), **kw)()
-    got = dispatch.extend_tiles_spec_async(
+    got = dispatch.extend_tiles_async(
         torch.from_numpy(ref), torch.from_numpy(query), *cols,
         gact.make_params(Config()), K=K, **kw)()
     L = got["ops"].shape[1]
@@ -548,20 +548,43 @@ def test_spec_dispatch_matches_darwin_tpu(interpret):
 
 
 def test_spec_dispatch_counts_every_computed_tile():
+    """Every tile a chain computes comes back: tile 1 and each later level
+    for all B lanes.  K = 1 takes a tile of any shape; K > 1 refuses a
+    tile that is not square."""
     ref, query, cols = _chain_case()
-    dispatch.reset_ext_stats()
-    dispatch.extend_tiles_spec_async(
-        torch.from_numpy(ref), torch.from_numpy(query), *cols,
-        gact.make_params(Config()), qt=T, rt=T, max_tb=2 * T, stop_thr=256,
-        K=2)()
     B = len(cols[0])
-    assert dispatch.EXT_STATS == {"dispatches": 1, "tiles": 2 * B,
-                                  "spec_tiles": B, "cells": 2 * B * T * T}
+    ref, query = torch.from_numpy(ref), torch.from_numpy(query)
+    params = gact.make_params(Config())
+    kw = dict(max_tb=2 * T, stop_thr=256)
+    got = dispatch.extend_tiles_async(ref, query, *cols, params, qt=T,
+                                      rt=T, K=2, **kw)()
+    assert got["ops"].shape[0] == len(got["n_ops"]) == B
+    assert len(got["spec_req"]) == 1
+    assert all(len(f) == B for f in got["spec_req"][0])
+    ops, n_ops = got["ops_spec"].take(0, np.arange(B))
+    assert ops.shape[0] == len(n_ops) == B
+    got = dispatch.extend_tiles_async(ref, query, *cols, params, qt=T,
+                                      rt=2 * T, K=1, **kw)()
+    assert got["ops"].shape == (B, 3 * T) and got["spec_req"] == []
+    assert (got["n_ops"] > 0).all()
     with pytest.raises(ValueError, match="square"):
-        dispatch.extend_tiles_spec_async(
-            torch.from_numpy(ref), torch.from_numpy(query), *cols,
-            gact.make_params(Config()), qt=T, rt=2 * T, max_tb=2 * T,
-            stop_thr=256)
+        dispatch.extend_tiles_async(ref, query, *cols, params, qt=T,
+                                    rt=2 * T, K=2, **kw)
+
+
+def test_chain_of_one_is_level_one_of_a_chain():
+    """K = 1 on square requests gives what level 1 of a K = 3 chain gives
+    on the same requests: ops, n_ops and the five stats."""
+    ref, query, cols = _chain_case()
+    args = (torch.from_numpy(ref), torch.from_numpy(query), *cols,
+            gact.make_params(Config()))
+    kw = dict(qt=T, rt=T, max_tb=2 * T, stop_thr=T - Config().tile_overlap)
+    one = dispatch.extend_tiles_async(*args, K=1, **kw)()
+    three = dispatch.extend_tiles_async(*args, K=3, **kw)()
+    for k in ("ops", "n_ops", "q_steps", "r_steps", "score",
+              "query_max_pos", "ref_max_pos"):
+        np.testing.assert_array_equal(one[k], three[k], err_msg=k)
+    assert one["spec_req"] == [] and len(three["spec_req"]) == 2
 
 
 # ------------------------------------------------------- (c) end to end
