@@ -22,6 +22,8 @@
 //   ext_table_*   - a read batch's extensions and their tile state machine
 //                   (extender.cpp:34-533): requests, the decode of a chain
 //                   level with its acceptance, the emitted alignments
+//   sam_cigars    - every printed SAM record's CIGAR of a batch
+//                   (printer.cpp:219-292)
 
 #include <algorithm>
 #include <cstdint>
@@ -744,6 +746,68 @@ int64_t ext_emit(void* h, const int64_t* exts, int64_t n,
                                     t.long_gap_extend);
     }
     return 0;
+}
+
+// ---------------------------------------------------------------------------
+// sam_cigars - the CIGARs of n SAM records (printer.cpp:219-292;
+// darwin_tpu/pipeline/printer.py:27-51).  Record i's aligned strings are
+// [ref_off[i], ref_off[i + 1]) of ref and [q_off[i], q_off[i + 1]) of q.
+// A column is I when the reference has '-', else D when the query has '-',
+// else M; equal adjacent ops make one run, printed as its length and op.
+// head[i] / tail[i] are the soft clips, printed as {n}S first / last when
+// n > 0; a record with no columns and no clips prints '*'.  Record i's
+// CIGAR goes to [out_off[i], out_off[i + 1]) of out, which holds cap bytes:
+// 2 a column (a run of n columns prints at most 2n), 21 a clip and 1 a
+// record suffice.  Returns the bytes written, SAM_BAD_LENGTH when a
+// record's two strings differ in length, SAM_FULL when out is too small.
+// ---------------------------------------------------------------------------
+
+enum { SAM_BAD_LENGTH = -1, SAM_FULL = -2 };
+
+// v >= 0 in decimal at p, then op; returns the bytes written
+static int64_t put_run(uint8_t* p, int64_t v, uint8_t op) {
+    uint8_t digits[20];
+    int k = 0;
+    do {
+        digits[k++] = (uint8_t)('0' + v % 10);
+        v /= 10;
+    } while (v != 0);
+    for (int j = 0; j < k; j++) p[j] = digits[k - 1 - j];
+    p[k] = op;
+    return k + 1;
+}
+
+int64_t sam_cigars(const uint8_t* ref, const uint8_t* q,
+                   const int64_t* ref_off, const int64_t* q_off, int64_t n,
+                   const int64_t* head, const int64_t* tail, uint8_t* out,
+                   int64_t cap, int64_t* out_off) {
+    int64_t w = 0;
+    out_off[0] = 0;
+    for (int64_t i = 0; i < n; i++) {
+        int64_t cols = ref_off[i + 1] - ref_off[i];
+        if (q_off[i + 1] - q_off[i] != cols) return SAM_BAD_LENGTH;
+        if (cap - w < 2 * cols + 43) return SAM_FULL;
+        const uint8_t* r = ref + ref_off[i];
+        const uint8_t* s = q + q_off[i];
+        int64_t start = w;
+        if (head[i] > 0) w += put_run(out + w, head[i], 'S');
+        uint8_t run_op = 0;
+        int64_t run = 0;
+        for (int64_t c = 0; c < cols; c++) {
+            uint8_t op = r[c] == '-' ? 'I' : s[c] == '-' ? 'D' : 'M';
+            if (op != run_op && run != 0) {
+                w += put_run(out + w, run, run_op);
+                run = 0;
+            }
+            run_op = op;
+            run++;
+        }
+        if (run != 0) w += put_run(out + w, run, run_op);
+        if (tail[i] > 0) w += put_run(out + w, tail[i], 'S');
+        if (w == start) out[w++] = '*';
+        out_off[i + 1] = w;
+    }
+    return w;
 }
 
 }  // extern "C"

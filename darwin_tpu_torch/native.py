@@ -1,7 +1,8 @@
 """ctypes bindings for the port's host library (csrc/darwin_native.cpp):
 FASTA scanning, anchor chaining, the walker's record expansion, the
-rescore of an emitted alignment and the extension table (a read batch's
-extensions and their tile state machine, ``ExtensionTable``).
+rescore of an emitted alignment, the extension table (a read batch's
+extensions and their tile state machine, ``ExtensionTable``) and a batch's
+SAM CIGARs.
 
 The port's own copy of ``darwin_tpu/native.py``.  The library is compiled
 on demand with g++ (plain C ABI) into ``darwin_tpu_torch/_build/``, named
@@ -9,7 +10,8 @@ by a hash of its source, written under a temporary name and moved into
 place with ``os.replace`` so that concurrent processes never load a
 half-written file.  Every entry point returns None when the toolchain or
 the library is unavailable (``available()``): FASTA reading then takes its
-Python path, chaining and decoding raise with ``unavailable_reason()``,
+Python path, chaining, decoding and the SAM printer raise with
+``unavailable_reason()``,
 which keeps the failed step's own message (g++'s errors, the loader's);
 so does ``ExtensionTable``.
 """
@@ -110,6 +112,9 @@ def _load():
         lib.score_alignment.argtypes = [_p8, _p8, _i64, _p64, _i64, _i64,
                                         _i64, _i64]
         lib.score_alignment.restype = _i64
+        lib.sam_cigars.argtypes = [_p8, _p8, _p64, _p64, _i64, _p64, _p64,
+                                   _p8, _i64, _p64]
+        lib.sam_cigars.restype = _i64
         _lib = lib
         return _lib
 
@@ -197,6 +202,43 @@ def score_alignment_native(ref, q, sub5, gap_open: int, gap_extend: int,
     return int(lib.score_alignment(
         ref, q, len(ref), np.ascontiguousarray(sub5, np.int64).reshape(25),
         gap_open, gap_extend, long_gap_open, long_gap_extend))
+
+
+def sam_cigars_native(refs, queries, head_clips, tail_clips):
+    """The SAM CIGAR of each record, in one call (printer.cpp:219-292):
+    refs[i] / queries[i] its aligned strings (bytes), head_clips[i] /
+    tail_clips[i] its soft clips.  Returns a list of str, or None if the
+    library is unavailable; raises ValueError when a record's two strings
+    differ in length."""
+    lib = _load()
+    if lib is None:
+        return None
+    n = len(refs)
+    if not len(queries) == len(head_clips) == len(tail_clips) == n:
+        raise ValueError(f"sam_cigars: {n} / {len(queries)} aligned "
+                         f"strings, {len(head_clips)} / {len(tail_clips)} "
+                         "clips")
+    offsets = []
+    for rows in (refs, queries):
+        off = np.zeros(n + 1, np.int64)
+        np.cumsum(np.fromiter(map(len, rows), np.int64, n), out=off[1:])
+        offsets.append(off)
+    ref_off, q_off = offsets
+    ref = np.frombuffer(b"".join(refs), np.uint8)
+    q = np.frombuffer(b"".join(queries), np.uint8)
+    cap = 2 * int(ref_off[-1]) + 43 * n
+    out = np.empty(cap, np.uint8)
+    out_off = np.empty(n + 1, np.int64)
+    w = lib.sam_cigars(ref, q, ref_off, q_off, n,
+                       np.asarray(head_clips, np.int64),
+                       np.asarray(tail_clips, np.int64), out, cap, out_off)
+    if w == -1:
+        raise ValueError("aligned strings differ in length")
+    if w < 0:
+        raise RuntimeError(f"sam_cigars: output of {cap} bytes too small")
+    text = out[:w].tobytes().decode()
+    bounds = out_off.tolist()
+    return [text[bounds[i]:bounds[i + 1]] for i in range(n)]
 
 
 # ext_table_* fault codes (csrc/darwin_native.cpp)
